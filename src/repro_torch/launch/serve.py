@@ -1,0 +1,55 @@
+"""Serving launcher of the port: the continuous-batching server on a
+smoke-sized model, with the flags of ``repro.launch.serve``.
+
+``python -m repro_torch.launch.serve --arch stablelm-1.6b --requests 8``
+
+It runs on the GPU; ``--device cpu`` runs it on the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+
+from repro_torch.configs import REGISTRY, get_config, smoke
+from repro_torch.device import resolve_device
+from repro_torch.models import build_model
+from repro_torch.serve import BatchServer, Request
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="stablelm-1.6b",
+                    choices=sorted(REGISTRY))
+    ap.add_argument("--requests", type=int, default=6)
+    ap.add_argument("--slots", type=int, default=3)
+    ap.add_argument("--max-new", type=int, default=8)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; raises without one)")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = smoke(get_config(args.arch))
+    model = build_model(cfg)
+    params = model.init(args.seed, device)
+    srv = BatchServer(model, params, slots=args.slots, seq_capacity=64,
+                      device=device)
+    rng = np.random.default_rng(args.seed)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                               int(rng.integers(2, 12))),
+                    max_new_tokens=args.max_new)
+            for i in range(args.requests)]
+    done = srv.serve(reqs)
+    for r in sorted(done, key=lambda r: r.rid):
+        print(f"req {r.rid}: prompt_len={len(r.prompt)} -> {r.output}")
+    print(f"server.tokens_out {srv.tokens_out}")
+    print(f"server.requests {srv.requests}")
+    print(f"server.decode_steps {srv.decode_steps}")
+    print(f"server.tokens_per_decode_step {srv.tokens_per_decode_step}")
+    print(f"server.latency_mean_s {float(np.mean(srv.latency))}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,133 @@
+"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import no
+JAX and nothing of the ``repro`` package, and their entry points run on
+the GPU unless the caller asks for the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+PROBE = r"""
+import importlib, importlib.util, pkgutil, sys
+import repro_torch
+for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(m.name)
+spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+bad = sorted(n for n in sys.modules
+             if n == "jax" or n.startswith("jax.") or n == "repro"
+             or n.startswith("repro."))
+print("IMPORTED", len([n for n in sys.modules if n.startswith("repro_torch")]))
+print("BAD", bad)
+"""
+
+
+def test_importing_the_port_loads_no_jax_and_no_repro():
+    out = subprocess.run(
+        [sys.executable, "-c", PROBE, str(ROOT / "chip_smoke.py")],
+        capture_output=True, text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+    n = int(out.stdout.split("IMPORTED")[1].split()[0])
+    assert n >= 20, out.stdout          # every module of the port loaded
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)
+def test_source_has_no_jax_or_repro_import(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), (path, name)
+
+
+def _no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+
+
+def test_entry_points_raise_without_a_card_unless_cpu():
+    _no_card()
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import build_model
+    from repro_torch.serve import BatchServer
+
+    model = build_model(smoke(get_config("stablelm-1.6b")), torch.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init_cache(1, 8)
+    params = model.init(0, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BatchServer(model, params, slots=1, seq_capacity=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_serve.main(["--requests", "1"])
+    srv = BatchServer(model, params, slots=1, seq_capacity=8, device="cpu")
+    from repro_torch.serve import Request
+    done = srv.serve([Request(0, np.array([1, 2]), max_new_tokens=2)])
+    assert len(done[0].output) == 2
+
+
+def test_launcher_runs_on_cpu_when_asked(capsys):
+    from repro_torch.launch import serve as launch_serve
+    launch_serve.main(["--requests", "2", "--slots", "2", "--max-new", "3",
+                       "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "req 0:" in out and "req 1:" in out
+    assert "server.requests 2" in out
+
+
+def test_unported_archs_and_families_name_their_roadmap_item():
+    from dataclasses import replace
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    with pytest.raises(KeyError, match="ROADMAP"):
+        get_config("olmoe-1b-7b")
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("no-such-arch")
+    moe = replace(get_config("stablelm-1.6b"), family="moe")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_model(moe)
+
+
+def test_config_copies_match_the_jax_package():
+    import dataclasses
+    from repro.configs import get_config as jax_get_config
+    from repro.configs import smoke as jax_smoke
+    from repro_torch.configs import REGISTRY, smoke
+    for name, cfg in REGISTRY.items():
+        want = jax_get_config(name)
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(want)
+        assert dataclasses.asdict(smoke(cfg)) == \
+            dataclasses.asdict(jax_smoke(want))
+
+
+def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):
+    _no_card()
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         capture_output=True, text=True, timeout=120, env=env)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((ROOT / "chip_smoke.py").read_text())
+    out = subprocess.run([sys.executable, str(alone)], capture_output=True,
+                         text=True, timeout=120, env=env, cwd=tmp_path)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
