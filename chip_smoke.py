@@ -1,28 +1,42 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--seed N]
 
-Phases, each of which raises on failure (the script then exits non-zero):
+Two paths, each at full width with random weights from --seed, in bf16:
+stablelm-1.6b (dense; prefill attention in the flash-attention kernel) and
+then olmoe-1b-7b (MoE; the same attention kernel, and the expert FFN in
+the moe_mlp kernel).  Phases, each of which raises on failure (the script
+then exits non-zero):
 
 1. card     -- the card's name and power limit (nvidia-smi), torch and CUDA
-2. build    -- compile the flash-attention kernel from the sources in this
-               checkout (nvcc, sm_90a) and print the compiler's report
-3. sweep    -- the kernel against its plain PyTorch version on the card, over
-               the flash sweep of tests/test_kernels.py x {f32, bf16} plus
-               ragged lengths, GQA, d=16 and a window
-4. model    -- full-width stablelm-1.6b (random weights from --seed, bf16):
-               a 2048-token prefill through the kernel path, and through the
-               plain attention with the same weights; logits compared
-5. serve    -- BatchServer(slots=4, seq_capacity=4096) at full width serves 8
-               requests of 128-2048 prompt tokens, 32 new tokens each: the
-               main path, with the kernel's launch count read around it
-6. timing   -- kernel, plain version and scaled_dot_product_attention (a
-               yardstick the port never calls) at the main path's shape,
+2. build    -- compile both kernels from the sources in this checkout,
+               one nvcc each (sm_90a), and print the compiler's report
+3. sweep    -- each kernel against its plain PyTorch version on the card:
+               flash over the sweep of tests/test_kernels.py x {f32, bf16}
+               plus ragged lengths, GQA, d=16 and a window; moe_mlp over
+               its sweep of tests/test_kernels.py and olmoe's widths at the
+               ragged capacities its prefill and decode give
+4. model    -- stablelm-1.6b: a 2048-token prefill through the kernel path,
+               and through the plain attention with the same weights;
+               logits compared
+5. serve    -- BatchServer(slots=4, seq_capacity=4096) serves 8 requests of
+               128-2048 prompt tokens, 32 new tokens each: the main path,
+               with both kernels' launch counts read around it
+6. timing   -- flash kernel, plain version and scaled_dot_product_attention
+               (a yardstick the port never calls) at the main path's shape,
                then the kernel alone at each prompt length the serve run had
 7. profile  -- torch.profiler over a second, smaller serve run: the device's
                busy share of prefill and of decode steps, and device time by
                kernel name
+8. olmoe    -- stablelm's parameters freed, olmoe-1b-7b drawn, then phases
+               4, 5 and 7 for it (the model phase puts the plain expert FFN
+               in the kernel's place), and the moe_mlp kernel, its plain
+               version and three torch.bmm (a yardstick the port never
+               calls) timed at the prefill (C=320) and decode (G=4, C=1)
+               shapes, where the kernel is also checked to keep h in f32,
+               and alone at three one-wave shapes that tell whether L2,
+               device memory or the block itself sets its pace
 
 It prints the kernel table as one JSON line, then the card's name and power
 limit, then the result line {"ok": true, "device": {...}} last.  Without a
@@ -40,12 +54,13 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-ARCH = "stablelm-1.6b"
+ARCH, MOE_ARCH = "stablelm-1.6b", "olmoe-1b-7b"
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 SERVE_REQUESTS, SERVE_SLOTS, SERVE_CAP, SERVE_NEW = 8, 4, 4096, 32
 PROFILE_REQUESTS, PROFILE_NEW, PROFILE_TOP = 4, 8, 8
 MAIN_SHAPE = dict(b=1, s=2048, h=32, d=64)    # stablelm prefill attention
+MOE_ATTN_SHAPE = dict(b=1, s=2048, h=16, d=128)  # olmoe prefill attention
 # model phase: the kernel and plain paths differ only in the order of f32
 # sums inside attention, which flips bf16 roundings of attention outputs by
 # one ulp (2^-8 relative); 24 residual layers spread the flips.  5% of the
@@ -53,6 +68,23 @@ MAIN_SHAPE = dict(b=1, s=2048, h=32, d=64)    # stablelm prefill attention
 # logits by the order of the logits themselves.
 LOGIT_RTOL = 0.05
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}     # tests/test_kernels.py
+MOE_TOL = {"float32": 1e-4, "bfloat16": 3e-2}  # tests/test_kernels.py
+# olmoe's model phase: the two paths differ only inside the expert FFN,
+# in the order of its f32 sums (both keep h in f32), which flips bf16
+# roundings of a layer's output by one ulp.  A
+# router near a tie between its 8th and 9th expert may then pick the
+# other one for that token, a larger but local change; 16 layers of it
+# stay well inside 5% of the largest logit, while a wrong kernel moves
+# logits by the order of the logits themselves.
+MOE_LOGIT_RTOL = 0.05
+# (g, e, c, d, f): tests/test_kernels.py's moe_mlp sweep, then olmoe-1b-7b
+# (E=64, D=2048, F=1024) at the capacities of prompts of 159, 1762 and 2048
+# tokens (C=25, 276, 320) and of a decode step over 4 slots (G=4, C=1)
+MOE_SWEEP = [(2, 4, 128, 64, 256), (1, 2, 64, 128, 512), (2, 2, 128, 32, 128),
+             (1, 64, 1, 2048, 1024), (1, 64, 25, 2048, 1024),
+             (1, 64, 276, 2048, 1024), (1, 64, 320, 2048, 1024),
+             (4, 64, 1, 2048, 1024)]
+MOE_PREFILL, MOE_DECODE = (1, 64, 320, 2048, 1024), (4, 64, 1, 2048, 1024)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -114,37 +146,48 @@ def phase_sweep(torch, ops) -> None:
             check(ok, f"kernel disagrees with its plain version ({case})")
 
 
-def phase_model(torch, np, cfg, model, params, layers, ops, seed: int):
+def phase_model(torch, np, cfg, model, params, seed: int, module, name: str,
+                plain, rtol: float) -> None:
+    """A 2048-token prefill through the kernel path, then through the same
+    model with the kernel's wrapper ``module.<name>`` replaced by its
+    plain version, here only; the last position's logits compared."""
+    from repro_torch.models.layers import padded_vocab
     prompt = np.random.default_rng(seed).integers(0, cfg.vocab_size, 2048)
     tokens = torch.as_tensor(prompt, device="cuda")[None]
     t0 = time.perf_counter()
     logits_k, _ = model.prefill(params, {"tokens": tokens})
     torch.cuda.synchronize()
     t_k = time.perf_counter() - t0
-    # the plain path: the same model with the kernel's plain version put in
-    # the kernel's place, here only
-    layers.flash_attention = ops.flash_attention_plain
+    kernel_fn = getattr(module, name)
+    setattr(module, name, plain)
     try:
         logits_p, _ = model.prefill(params, {"tokens": tokens})
         torch.cuda.synchronize()
     finally:
-        layers.flash_attention = ops.flash_attention
+        setattr(module, name, kernel_fn)
     lk, lp = logits_k[0, -1].float(), logits_p[0, -1].float()
-    check(logits_k.shape == (1, 1, 100352), f"logits {tuple(logits_k.shape)}")
+    want_shape = (1, 1, padded_vocab(cfg))
+    check(tuple(logits_k.shape) == want_shape,
+          f"logits {tuple(logits_k.shape)}, want {want_shape}")
     check(bool(torch.isfinite(lk).all()), "non-finite logits")
     err = float((lk - lp).abs().max())
     scale = float(lp.abs().max())
     top2 = torch.topk(lp, 2).values
-    print(f"model {ARCH} prefill s=2048 bf16: kernel path {t_k * 1e3:.1f} ms "
-          f"(first call); max|dlogit|={err:.4e} vs max|logit|={scale:.4f} "
-          f"(tol {LOGIT_RTOL} x max|logit|); argmax kernel "
-          f"{int(lk.argmax())} plain {int(lp.argmax())} (top-2 gap "
-          f"{float(top2[0] - top2[1]):.4f})")
-    check(err <= LOGIT_RTOL * scale, "kernel path logits disagree")
+    print(f"model {cfg.name} prefill s=2048 bf16: kernel path "
+          f"{t_k * 1e3:.1f} ms (first call); plain {name} in its place: "
+          f"max|dlogit|={err:.4e} vs max|logit|={scale:.4f} (tol {rtol} x "
+          f"max|logit|); argmax kernel {int(lk.argmax())} plain "
+          f"{int(lp.argmax())} (top-2 gap {float(top2[0] - top2[1]):.4f})")
+    check(err <= rtol * scale, "kernel path logits disagree")
     check(int(lk.argmax()) == int(lp.argmax()), "argmax differs")
 
 
-def phase_serve(torch, np, cfg, model, params, ops, seed: int, card: str):
+def phase_serve(torch, np, cfg, model, params, counters, seed: int,
+                card: str):
+    """The main path: every launch count set to 0 just before the serve
+    run and read just after.  Each prefill launches the flash kernel once
+    per layer; an MoE arch launches moe_mlp once per layer of every
+    prefill and every decode step, a dense arch never."""
     from repro_torch.serve import BatchServer, Request
     rng = np.random.default_rng(seed)
     lens = rng.integers(128, 2049, SERVE_REQUESTS)
@@ -152,21 +195,27 @@ def phase_serve(torch, np, cfg, model, params, ops, seed: int, card: str):
                     max_new_tokens=SERVE_NEW) for i, n in enumerate(lens)]
     srv = BatchServer(model, params, slots=SERVE_SLOTS,
                       seq_capacity=SERVE_CAP, device="cuda")
-    ops.flash_attention.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    for wrapper in counters.values():
+        wrapper.launches = 0
     t0 = time.perf_counter()
     done = srv.serve(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = ops.flash_attention.launches
+    launches = {n: w.launches for n, w in counters.items()}
     check(len(done) == SERVE_REQUESTS, f"{len(done)} requests finished")
     for r in done:
         check(len(r.output) == SERVE_NEW, f"rid {r.rid}: {len(r.output)} "
                                           f"tokens")
         check(all(0 <= t < cfg.vocab_size for t in r.output),
               f"rid {r.rid}: token out of vocab")
-    want = cfg.n_layers * SERVE_REQUESTS
-    check(launches == want, f"flash_attention launched {launches} times "
-                            f"in the serve run, want {want}")
+    moe = cfg.family == "moe"
+    want = {"flash_attention": cfg.n_layers * SERVE_REQUESTS,
+            "moe_mlp": (cfg.n_layers * (SERVE_REQUESTS + srv.decode_steps)
+                        if moe else 0)}
+    for n, got in launches.items():
+        check(got == want[n], f"{n} launched {got} times in the {cfg.name} "
+                              f"serve run, want {want[n]}")
     # the server's first token is a batch-1 prefill: reproduce one
     r0 = min(done, key=lambda r: r.rid)
     lg, _ = model.prefill(srv.params, {
@@ -177,19 +226,20 @@ def phase_serve(torch, np, cfg, model, params, ops, seed: int, card: str):
     pre = np.array(srv.prefill_seconds) * 1e3
     dec = np.array(srv.decode_seconds) * 1e3
     tokens = sum(len(r.output) for r in done)
-    print(f"serve {ARCH} slots={SERVE_SLOTS} cap={SERVE_CAP} prompts "
+    print(f"serve {cfg.name} slots={SERVE_SLOTS} cap={SERVE_CAP} prompts "
           f"{sorted(int(n) for n in lens)}: {tokens} tokens in {wall:.3f} s "
           f"= {tokens / wall:.1f} tokens/s; prefill {pre.mean():.2f} ms/request "
           f"(min {pre.min():.2f}, max {pre.max():.2f}); decode "
           f"{dec.mean():.2f} ms/step over {srv.decode_steps} steps "
-          f"(median {np.median(dec):.2f}); flash launches {launches} "
-          f"[{card}]")
+          f"(median {np.median(dec):.2f}); launches {launches}; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB [{card}]")
     return launches, [int(n) for n in lens]
 
 
-def phase_timing(torch, ops):
+def phase_timing(torch, ops, shape):
     import torch.nn.functional as F
-    b, s, h, d = (MAIN_SHAPE[k] for k in "bshd")
+    b, s, h, d = (shape[k] for k in "bshd")
     gen = torch.Generator(device="cuda").manual_seed(2)
     q, k, v = (torch.randn(b, s, h, d, generator=gen, device="cuda")
                .to(torch.bfloat16) for _ in range(3))
@@ -314,12 +364,127 @@ def phase_profile(torch, np, cfg, model, params, seed: int, card: str):
         for name, (tot, n) in top[:PROFILE_TOP]:
             print(f"  {kind} device {tot / 1e3 / steps:.4f} ms per step, "
                   f"{n} launches: {name[:110]}")
-        flash = sum(tot for name, (tot, _) in by_name[kind].items()
-                    if "flash" in name)
-        print(f"  {kind} flash kernel {flash / 1e3 / steps:.4f} ms per step "
-              f"= {flash / max(busy[kind], 1e-9):.4f} of device busy time")
-    print(f"profile: prompts {sorted(int(n) for n in lens)}, "
+        for key in ("flash", "moe_mlp"):
+            tot = sum(t for name, (t, _) in by_name[kind].items()
+                      if key in name)
+            print(f"  {kind} {key} kernel {tot / 1e3 / steps:.4f} ms per "
+                  f"step = {tot / max(busy[kind], 1e-9):.4f} of device busy "
+                  f"time")
+    print(f"profile {cfg.name}: prompts {sorted(int(n) for n in lens)}, "
           f"{PROFILE_NEW} new tokens each, {len(dev)} device events")
+
+
+def _moe_inputs(torch, gen, g, e, c, d, f, dtype):
+    x = torch.randn(g, e, c, d, generator=gen, device="cuda").to(dtype)
+    wi, wg = (torch.randn(e, d, f, generator=gen, device="cuda")
+              .div_(d ** 0.5).to(dtype) for _ in range(2))
+    wo = torch.randn(e, f, d, generator=gen, device="cuda").div_(f ** 0.5)
+    return x, wi, wg, wo.to(dtype)
+
+
+def _moe_close(torch, got, want, dtype: str):
+    err = (got.float() - want.float()).abs()
+    lim = MOE_TOL[dtype] * (1 + want.float().abs())
+    ok = bool((err <= lim).all()) and bool(torch.isfinite(got).all())
+    return ok, float(err.max())
+
+
+def phase_moe_sweep(torch, moe_ops) -> None:
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for g, e, c, d, f in MOE_SWEEP:
+            args = _moe_inputs(torch, gen, g, e, c, d, f, dtype)
+            got = moe_ops.expert_mlp(*args)
+            want = moe_ops.expert_mlp_plain(*args)
+            torch.cuda.synchronize()
+            ok, err = _moe_close(torch, got, want, name)
+            case = f"{name} G={g} E={e} C={c} D={d} F={f}"
+            print(f"moe sweep {case}: max_abs_err={err:.3e} "
+                  f"tol={MOE_TOL[name]} {'ok' if ok else 'FAIL'}")
+            check(ok, f"moe_mlp kernel disagrees with its plain version "
+                      f"({case})")
+
+
+def _check_h_precision(torch, moe_ops, args, got, want, label: str):
+    """The kernel keeps h = silu(x wi)(x wg) in f32, as the TPU kernel
+    does: its bf16 outputs must differ from the plain version's (f32 h) in
+    fewer places than the plain version's own would with h rounded to
+    bf16 before the down projection."""
+    x, wi, wg, wo = (t.float() for t in args)
+    h = torch.einsum("gecd,edf->gecf", x, wi)
+    h = h * torch.sigmoid(h) * torch.einsum("gecd,edf->gecf", x, wg)
+    rounded = torch.einsum("gecf,efd->gecd", h.bfloat16().float(), wo)
+    rounded = rounded.to(got.dtype)
+    share = float((got != want).float().mean())
+    r_share = float((rounded != want).float().mean())
+    r_err = float((rounded.float() - want.float()).abs().max())
+    print(f"moe h precision {label}: kernel outputs differing from the "
+          f"plain version's: {share:.6f}; with h rounded to bf16: "
+          f"{r_share:.6f} (max_abs_err {r_err:.3e})")
+    check(share < r_share, f"moe_mlp {label}: the kernel's h is not kept "
+                           f"in f32 ({share} >= {r_share})")
+
+
+def phase_moe_timing(torch, moe_ops, shape, label: str, card: str):
+    """The kernel, its plain version and three torch.bmm over the experts
+    (a yardstick the port never calls) on one bf16 input; the bound is the
+    larger of its flops at the bf16 peak and its bytes (the weights, x and
+    out, each once) at the memory rate."""
+    import torch.nn.functional as F
+    g, e, c, d, f = shape
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x, wi, wg, wo = _moe_inputs(torch, gen, g, e, c, d, f, torch.bfloat16)
+
+    def library():
+        xe = x.transpose(0, 1).reshape(e, g * c, d)
+        h = F.silu(torch.bmm(xe, wi)) * torch.bmm(xe, wg)
+        return torch.bmm(h, wo).reshape(e, g, c, d).transpose(0, 1)
+
+    got = moe_ops.expert_mlp(x, wi, wg, wo)
+    want = moe_ops.expert_mlp_plain(x, wi, wg, wo)
+    ok, err = _moe_close(torch, got, want, "bfloat16")
+    check(ok, f"moe_mlp {label}-shape kernel error {err}")
+    _check_h_precision(torch, moe_ops, (x, wi, wg, wo), got, want, label)
+    lib_ok, lib_err = _moe_close(torch, library(), want, "bfloat16")
+    check(lib_ok, f"the torch.bmm yardstick computes another function "
+                  f"({lib_err})")
+    ms = cuda_ms(lambda: moe_ops.expert_mlp(x, wi, wg, wo))
+    plain_ms = cuda_ms(lambda: moe_ops.expert_mlp_plain(x, wi, wg, wo))
+    lib_ms = cuda_ms(library)
+    flops = 6 * g * e * c * d * f
+    nbytes = (3 * e * d * f + 2 * g * e * c * d) * x.element_size()
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    bound_ms, bound_by = max((t_ops, "operations"), (t_bytes, "bytes"))
+    print(f"moe timing {label} G={g} E={e} C={c} D={d} F={f} bf16: kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.bmm {lib_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP, "
+          f"{nbytes / 1e6:.2f} MB); kernel at {flops / ms / 1e9:.2f} "
+          f"TFLOP/s, {nbytes / ms / 1e9:.3f} TB/s; max_abs_err {err:.3e} "
+          f"[{card}]")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=lib_ms)
+
+
+def phase_moe_waves(torch, moe_ops, card: str) -> None:
+    """Where a moe_mlp block's time goes: the kernel at shapes that fill
+    at most one wave of 132 blocks (one 32-row block per SM), so that the
+    time is one block's.  (E=64, C=32): each block streams its own
+    expert; (E=13, C=320): ten blocks share each expert through L2;
+    (E=132, C=32): every block's expert comes from device memory.  If the
+    three agree, neither L2 nor device memory sets the pace: the block's
+    own staging and arithmetic do."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for g, e, c in ((1, 64, 32), (1, 13, 320), (1, 132, 32)):
+        args = _moe_inputs(torch, gen, g, e, c, 2048, 1024, torch.bfloat16)
+        ok, err = _moe_close(torch, moe_ops.expert_mlp(*args),
+                             moe_ops.expert_mlp_plain(*args), "bfloat16")
+        check(ok, f"moe_mlp G={g} E={e} C={c}: error {err}")
+        ms = cuda_ms(lambda: moe_ops.expert_mlp(*args))
+        blocks = g * e * -(-c // 32)
+        print(f"moe waves G={g} E={e} C={c} D=2048 F=1024 bf16: {blocks} "
+              f"blocks, kernel {ms:.4f} ms [{card}]")
+        del args
 
 
 def main() -> int:
@@ -339,30 +504,38 @@ def main() -> int:
     sys.path.insert(0, str(src))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    import gc
+
     import numpy as np
     from repro_torch.configs import get_config
+    from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import kernel, ops
+    from repro_torch.kernels.moe_mlp import kernel as moe_kernel
+    from repro_torch.kernels.moe_mlp import ops as moe_ops
     from repro_torch.models import build_model
-    from repro_torch.models import layers
+    from repro_torch.models import layers, moe
 
     # 1. card
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
-    # 2. build
-    t0 = time.perf_counter()
-    lib_path = kernel.build()
-    kernel.load()
-    print(f"build: {lib_path.name} in {time.perf_counter() - t0:.1f} s")
-    log = lib_path.with_suffix(".log")
-    if log.exists():
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas: {line.strip()}")
+    # 2. build: one nvcc per source, in turn
+    for mod in (kernel, moe_kernel):
+        t0 = time.perf_counter()
+        path = build.build(mod.SOURCE)
+        mod.load()
+        print(f"build: {path.name} in {time.perf_counter() - t0:.1f} s")
+        for line in path.with_suffix(".log").read_text().splitlines():
+            if "Compiling entry" in line or "registers" in line \
+                    or "spill" in line:
+                print(f"  ptxas {path.name}: {line.strip()}")
 
-    # 3. kernel against its plain version
+    # 3. each kernel against its plain version
     phase_sweep(torch, ops)
+    phase_moe_sweep(torch, moe_ops)
+    counters = {"flash_attention": ops.flash_attention,
+                "moe_mlp": moe_ops.expert_mlp}
 
     # 4. full width, kernel path against plain path
     cfg = get_config(ARCH)
@@ -373,30 +546,72 @@ def main() -> int:
     print(f"model: {ARCH} params drawn and cast to bf16 in "
           f"{time.perf_counter() - t0:.1f} s, "
           f"{sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B params")
-    phase_model(torch, np, cfg, model, params, layers, ops, args.seed)
+    phase_model(torch, np, cfg, model, params, args.seed, layers,
+                "flash_attention", ops.flash_attention_plain, LOGIT_RTOL)
 
     # 5. serve: the main path, launches counted around it alone
-    launches, lens = phase_serve(torch, np, cfg, model, params, ops,
-                                 args.seed, card)
+    dense_launches, lens = phase_serve(torch, np, cfg, model, params,
+                                       counters, args.seed, card)
 
     # 6. times at the main path's shape, then at each served length
-    t = phase_timing(torch, ops)
+    t = phase_timing(torch, ops, MAIN_SHAPE)
     phase_lengths(torch, ops, lens, cfg.n_layers, card)
 
     # 7. where a served request's time goes on the device
     phase_profile(torch, np, cfg, model, params, args.seed, card)
 
-    row = {"name": "flash_attention", "route": "cuda",
-           "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                     "flash_attention.cu",
-           "replaces": "src/repro/kernels/flash_attention/kernel.py:37",
-           "launches": launches, **t}
-    print(json.dumps({"kernels": [row]}))
+    # 8. olmoe-1b-7b: stablelm's parameters freed first
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    mcfg = get_config(MOE_ARCH)
+    mmodel = build_model(mcfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mparams = mmodel.load(mmodel.init(args.seed, "cuda"), "cuda")
+    torch.cuda.synchronize()
+    print(f"model: {MOE_ARCH} params drawn and cast to bf16 in "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{sum(t.numel() for t in _leaves(mparams)) / 1e9:.3f} B params, "
+          f"peak device memory of the init "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    phase_model(torch, np, mcfg, mmodel, mparams, args.seed, moe,
+                "expert_mlp", moe_ops.expert_mlp_plain, MOE_LOGIT_RTOL)
+    moe_launches, _ = phase_serve(torch, np, mcfg, mmodel, mparams, counters,
+                                  args.seed, card)
+    phase_timing(torch, ops, MOE_ATTN_SHAPE)
+    tm = phase_moe_timing(torch, moe_ops, MOE_PREFILL, "prefill", card)
+    td = phase_moe_timing(torch, moe_ops, MOE_DECODE, "decode", card)
+    phase_moe_waves(torch, moe_ops, card)
+    phase_profile(torch, np, mcfg, mmodel, mparams, args.seed, card)
+
+    by_path = {ARCH: dense_launches, MOE_ARCH: moe_launches}
+    rows = [
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                   "flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:37",
+         "launches": sum(v["flash_attention"] for v in by_path.values()),
+         "launches_by_path": {a: v["flash_attention"]
+                              for a, v in by_path.items()}, **t},
+        {"name": "moe_mlp", "route": "cuda",
+         "source": "src/repro_torch/kernels/moe_mlp/csrc/moe_mlp.cu",
+         "replaces": "src/repro/kernels/moe_mlp/kernel.py:31",
+         "launches": moe_launches["moe_mlp"],
+         "launches_by_path": {a: v["moe_mlp"] for a, v in by_path.items()},
+         **tm, "shape": _moe_shape(MOE_PREFILL) + " (prefill)",
+         "decode": {**td, "shape": _moe_shape(MOE_DECODE)}},
+    ]
+    print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _moe_shape(shape) -> str:
+    return "G={} E={} C={} D={} F={} bf16".format(*shape)
 
 
 def _leaves(tree):

@@ -5,9 +5,10 @@ The port imports ``torch`` and never ``jax``, and nothing of the
 (configs, the slot-scheduler policy).  Every entry point runs on the GPU
 unless the caller passes ``device="cpu"``.
 
-Covered so far: the dense decoder family (``models``), served through
-``serve.BatchServer``, with prefill attention in a hand-written Hopper
-kernel (``kernels.flash_attention``).
+Covered so far: the dense and MoE decoder families (``models``), served
+through ``serve.BatchServer``, with prefill attention and the MoE expert
+FFN in hand-written Hopper kernels (``kernels.flash_attention``,
+``kernels.moe_mlp``).
 """
 
 from repro_torch.device import resolve_device  # noqa: F401

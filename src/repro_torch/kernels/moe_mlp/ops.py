@@ -1,0 +1,79 @@
+"""Public wrapper of the fused expert-MLP kernel, in model layout.
+
+``expert_mlp(x, wi, wg, wo)`` takes the capacity blocks x ``(G, E, C, D)``
+and the expert weights wi/wg ``(E, D, F)``, wo ``(E, F, D)``, and returns
+``(G, E, C, D)`` in x's dtype.  On a CUDA tensor it launches the
+hand-written kernel (``csrc/moe_mlp.cu``) or raises; it takes the plain
+version only for tensors on the CPU.  ``expert_mlp.launches`` counts
+kernel launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.moe_mlp import kernel
+from repro_torch.kernels.moe_mlp.ref import expert_mlp_plain
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_GRID_Y = 65535
+# shared memory one block may use on Hopper (227 KB), cudaFuncSetAttribute
+MAX_SMEM_BYTES = 232448
+
+
+def _check(x, wi, wg, wo) -> None:
+    if x.dim() != 4 or wi.dim() != 3:
+        raise ValueError(f"want x (G,E,C,D), wi/wg (E,D,F), wo (E,F,D); got "
+                         f"{tuple(x.shape)}, {tuple(wi.shape)}")
+    g, e, c, d = x.shape
+    f = wi.shape[2]
+    if (tuple(wi.shape) != (e, d, f) or tuple(wg.shape) != (e, d, f)
+            or tuple(wo.shape) != (e, f, d)):
+        raise ValueError(f"weights {tuple(wi.shape)}, {tuple(wg.shape)}, "
+                         f"{tuple(wo.shape)} do not fit x {tuple(x.shape)}")
+    if (len({t.dtype for t in (x, wi, wg, wo)}) != 1
+            or x.dtype not in _DTYPE_CODE):
+        raise TypeError(f"want float32 or bfloat16 for all of x/wi/wg/wo, "
+                        f"got {x.dtype}, {wi.dtype}, {wg.dtype}, {wo.dtype}")
+    if len({t.device for t in (x, wi, wg, wo)}) != 1:
+        raise ValueError("x and the weights must lie on one device")
+
+
+def expert_mlp(x: torch.Tensor, wi: torch.Tensor, wg: torch.Tensor,
+               wo: torch.Tensor) -> torch.Tensor:
+    """Per-expert SwiGLU FFN over capacity blocks -> (G, E, C, D)."""
+    _check(x, wi, wg, wo)
+    if x.device.type == "cpu":
+        return expert_mlp_plain(x, wi, wg, wo)
+    if x.device.type != "cuda":
+        raise ValueError(f"no expert_mlp for device {x.device}")
+    g, e, c, d = x.shape
+    f = wi.shape[2]
+    if d % 32 or f % 128:
+        raise ValueError(f"the kernel needs D % 32 == 0 and F % 128 == 0; "
+                         f"got D={d}, F={f}")
+    if e > _MAX_GRID_Y:
+        raise ValueError(f"E = {e} exceeds the grid ({_MAX_GRID_Y})")
+    lib = kernel.load()
+    code = _DTYPE_CODE[x.dtype]
+    smem = lib.moe_mlp_smem_bytes(code, c, f)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"F={f} needs {smem} bytes of shared memory per "
+                         f"block ({x.dtype}, C={c}); the card has "
+                         f"{MAX_SMEM_BYTES}")
+    x, wi, wg, wo = (t.contiguous() for t in (x, wi, wg, wo))
+    if any(t.data_ptr() % 16 for t in (x, wi, wg, wo)):
+        raise ValueError("the kernel loads 16-byte vectors: x and the "
+                         "weights must start on a 16-byte boundary")
+    out = torch.empty_like(x)
+    err = lib.moe_mlp_fwd(
+        x.data_ptr(), wi.data_ptr(), wg.data_ptr(), wo.data_ptr(),
+        out.data_ptr(), code, g, e, c, d, f, x.device.index,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"moe_mlp kernel launch failed: CUDA error {err}")
+    expert_mlp.launches += 1
+    return out
+
+
+expert_mlp.launches = 0

@@ -1,0 +1,126 @@
+"""Mixture-of-Experts FFN of the port: top-k routing with sort-based,
+group-local dispatch (dropless up to a capacity factor).
+
+Mirrors ``repro.models.moe``: groups are batch rows (subdivided so that
+a group never exceeds ``MAX_GROUP_TOKENS``), capacity
+``C = min(ceil(top_k T capacity_factor / E), T top_k)`` per group, slots
+beyond C drop, and the Switch-style aux loss is returned beside y.  The
+JAX package's sharding annotations have no counterpart here.
+
+Three orderings follow JAX exactly, or the slot assignment diverges
+whenever capacity overflows or router probabilities tie:
+
+* ``jax.lax.top_k`` puts the lower index first among equal values:
+  a stable descending sort, first k;
+* ``jnp.argsort`` is stable: ``torch.argsort(..., stable=True)``;
+* expert segments are found with ``searchsorted`` side left and right.
+
+With a SwiGLU activation the expert compute goes through
+``expert_mlp`` on every device: the hand-written kernel on the card, its
+plain version on the CPU, both in f32 as the TPU kernel computes it
+(the JAX model's einsum path rounds h to the compute dtype).  Other
+activations take the einsum path of the JAX function.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.moe_mlp.ops import expert_mlp
+from repro_torch.models.common import param
+from repro_torch.models.layers import _gelu_tanh
+
+MAX_GROUP_TOKENS = 4096
+
+
+def init_moe(gen: torch.Generator, cfg) -> Dict:
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    p = {
+        "router": param(gen, (d, e), scale=0.02),
+        "wi": param(gen, (e, d, f)),
+        "wo": param(gen, (e, f, d)),
+    }
+    if cfg.act == "swiglu":
+        p["wg"] = param(gen, (e, d, f))
+    return p
+
+
+def route_topk(logits: torch.Tensor, k: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """logits (..., E) -> (gates (..., k) renormalized, idx (..., k))."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    gates, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, idx = gates[..., :k], idx[..., :k]
+    gates = gates / torch.clamp(gates.sum(dim=-1, keepdim=True), min=1e-9)
+    return gates, idx
+
+
+def load_balance_loss(probs: torch.Tensor, idx: torch.Tensor,
+                      n_experts: int) -> torch.Tensor:
+    """Switch-style aux loss: E * sum_e f_e * P_e."""
+    one_hot = F.one_hot(idx, n_experts).float()            # (..., k, E)
+    f = one_hot.sum(dim=-2).mean(dim=tuple(range(one_hot.dim() - 2)))
+    f = f / one_hot.shape[-2]
+    P = probs.mean(dim=tuple(range(probs.dim() - 1)))
+    return n_experts * torch.sum(f * P)
+
+
+def apply_moe(p: Dict, x: torch.Tensor, cfg
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> (y (B, S, D), aux_loss scalar f32)."""
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    sub = max(1, S // MAX_GROUP_TOKENS) if S % MAX_GROUP_TOKENS == 0 else 1
+    G, T = B * sub, S // sub
+    x = x.reshape(G, T, D)
+    TK = T * K
+    C = max(1, math.ceil(K * T * cfg.capacity_factor / E))
+    C = min(C, TK)
+    dev = x.device
+
+    logits = torch.einsum("gtd,de->gte", x, p["router"]).float()
+    probs = torch.softmax(logits, dim=-1)
+    gates, eidx = route_topk(logits, K)                    # (G,T,K)
+    aux = load_balance_loss(probs, eidx, E)
+
+    flat_e = eidx.reshape(G, TK)
+    sort_idx = torch.argsort(flat_e, dim=-1, stable=True)  # (G,TK)
+    sorted_e = torch.gather(flat_e, -1, sort_idx)
+    experts = torch.arange(E, device=dev).expand(G, E).contiguous()
+    # per-group start/end of each expert's segment in sorted order
+    starts = torch.searchsorted(sorted_e, experts, side="left")
+    ends = torch.searchsorted(sorted_e, experts, side="right")
+
+    # --- dispatch: gather tokens into (G, E, C, D) capacity blocks -----
+    pos = starts[:, :, None] + torch.arange(C, device=dev)[None, None, :]
+    valid = pos < ends[:, :, None]                         # (G,E,C)
+    pos_c = torch.clamp(pos, max=TK - 1).reshape(G, E * C)
+    tok_src = torch.gather(sort_idx, -1, pos_c) // K       # (G,EC)
+    rows = torch.arange(G, device=dev)[:, None]
+    xin = x[rows, tok_src]                                 # (G,EC,D)
+    xin = xin * valid.reshape(G, E * C, 1).to(x.dtype)
+    xin = xin.reshape(G, E, C, D)
+
+    # --- expert compute --------------------------------------------------
+    if cfg.act == "swiglu":
+        out = expert_mlp(xin, p["wi"], p["wg"], p["wo"])   # (G,E,C,D)
+    else:
+        h = torch.einsum("gecd,edf->gecf", xin, p["wi"])
+        h = (torch.square(F.relu(h)) if cfg.act == "sq_relu"
+             else _gelu_tanh(h))
+        out = torch.einsum("gecf,efd->gecd", h, p["wo"])
+
+    # --- combine: gather each (token, k) slot's output, weight by gate --
+    inv = torch.argsort(sort_idx, dim=-1, stable=True)     # (G,TK)
+    c_of = inv - torch.gather(starts, -1, flat_e)          # (G,TK)
+    within = (c_of >= 0) & (c_of < C)
+    flat_slot = flat_e * C + torch.clamp(c_of, 0, C - 1)   # (G,TK)
+    per_k = out.reshape(G, E * C, D)[rows, flat_slot]      # (G,TK,D)
+    per_k = per_k * within[:, :, None].to(x.dtype)
+    per_k = per_k.reshape(G, T, K, D)
+    y = torch.einsum("gtkd,gtk->gtd", per_k, gates.to(x.dtype))
+    return y.reshape(B, S, D), aux

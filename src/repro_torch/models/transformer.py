@@ -1,8 +1,10 @@
-"""Decoder LM assembly of the port, dense family.
+"""Decoder LM assembly of the port, dense and MoE families.
 
 Mirrors ``repro.models.transformer``: parameters keep the stacked
 leading layer axis, and a Python loop over layers takes the place of
-``lax.scan``.  Two modes:
+``lax.scan``.  MoE layers return the load-balance aux loss, which
+``decoder_forward`` sums over layers as the JAX function does.  Two
+modes:
 
   prefill -> logits at the last position + a stacked KV cache
   decode  -> one-token step that updates the stacked cache IN PLACE
@@ -18,11 +20,14 @@ import torch
 
 from repro_torch.configs import ROADMAP
 from repro_torch.models import layers as ll
+from repro_torch.models import moe as me
 from repro_torch.models.common import cast, stack_inits
+
+FAMILIES = ("dense", "moe")
 
 
 def check_family(cfg) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet: "
             f"{ROADMAP.get(cfg.family, 'ROADMAP.md Queue 1')}")
@@ -33,13 +38,15 @@ def check_family(cfg) -> None:
 # ---------------------------------------------------------------------------
 
 def init_layer(gen: torch.Generator, cfg) -> Dict:
-    """One decoder layer (norms + attention + MLP)."""
-    return {
-        "norm1": ll.init_norm(gen, cfg, cfg.d_model),
-        "mixer": ll.init_attention(gen, cfg),
-        "norm2": ll.init_norm(gen, cfg, cfg.d_model),
-        "ffn": ll.init_mlp(gen, cfg),
-    }
+    """One decoder layer (norms + attention + MLP or MoE).  The stacked
+    layers share one structure, so the JAX package builds and applies
+    every one as layer 0 (``is_moe_layer(0)``); so does the port."""
+    norm1 = ll.init_norm(gen, cfg, cfg.d_model)
+    mixer = ll.init_attention(gen, cfg)
+    norm2 = ll.init_norm(gen, cfg, cfg.d_model)
+    ffn = (me.init_moe(gen, cfg) if cfg.is_moe_layer(0)
+           else ll.init_mlp(gen, cfg))
+    return {"norm1": norm1, "mixer": mixer, "norm2": norm2, "ffn": ffn}
 
 
 def init_lm(gen: torch.Generator, cfg) -> Dict:
@@ -95,8 +102,10 @@ def make_positions(cfg, b: int, s: int, device: torch.device) -> torch.Tensor:
 
 def apply_layer(p: Dict, x: torch.Tensor, cfg, positions, mode: str,
                 cache: Optional[Dict], cur_len, chunk: int,
-                seq_capacity: int) -> Tuple[torch.Tensor, Dict]:
-    """Returns (x, new_cache_entry)."""
+                seq_capacity: int
+                ) -> Tuple[torch.Tensor, Dict, Optional[torch.Tensor]]:
+    """Returns (x, new_cache_entry, aux_loss); aux is None for a dense
+    FFN, which adds nothing (and launches nothing) to the sum."""
     rs = cfg.residual_scale
     h = ll.apply_norm(p["norm1"], x, cfg)
     if mode == "decode":
@@ -109,8 +118,13 @@ def apply_layer(p: Dict, x: torch.Tensor, cfg, positions, mode: str,
                                    kv_capacity(cfg, seq_capacity))
     x = x + rs * mix
     h2 = ll.apply_norm(p["norm2"], x, cfg)
-    x = x + rs * ll.apply_mlp(p["ffn"], h2, cfg)
-    return x, new_cache
+    aux = None
+    if cfg.is_moe_layer(0):
+        f, aux = me.apply_moe(p["ffn"], h2, cfg)
+    else:
+        f = ll.apply_mlp(p["ffn"], h2, cfg)
+    x = x + rs * f
+    return x, new_cache, aux
 
 
 def _layer(tree: Dict, i: int) -> Dict:
@@ -121,19 +135,24 @@ def _layer(tree: Dict, i: int) -> Dict:
 def decoder_forward(layers_params: Dict, x: torch.Tensor, cfg, positions,
                     mode: str, cache: Optional[Dict] = None, cur_len=None,
                     chunk: int = 2048, seq_capacity: int = 0
-                    ) -> Tuple[torch.Tensor, Dict]:
-    """Run the decoder stack.  Prefill returns a new stacked cache in the
-    compute dtype; decode writes into ``cache`` in place and returns it."""
+                    ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
+    """Run the decoder stack -> (x, cache, aux_loss summed over layers).
+    Prefill returns a new stacked cache in the compute dtype; decode
+    writes into ``cache`` in place and returns it."""
     seq_capacity = seq_capacity or x.shape[1]
     new = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
         lc = _layer(cache, i) if mode == "decode" else None
-        x, nc = apply_layer(_layer(layers_params, i), x, cfg, positions,
-                            mode, lc, cur_len, chunk, seq_capacity)
+        x, nc, a = apply_layer(_layer(layers_params, i), x, cfg, positions,
+                               mode, lc, cur_len, chunk, seq_capacity)
+        if a is not None:
+            aux = aux + a
         new.append(nc)
     if mode == "decode":
-        return x, cache
-    return x, {n: torch.stack([c[n] for c in new]) for n in ("k", "v")}
+        return x, cache, aux
+    return (x, {n: torch.stack([c[n] for c in new]) for n in ("k", "v")},
+            aux)
 
 
 # ---------------------------------------------------------------------------
@@ -145,7 +164,8 @@ def lm_apply(params: Dict, batch: Dict, cfg, mode: str = "prefill",
              seq_capacity: int = 0,
              compute_dtype: torch.dtype = torch.bfloat16
              ) -> Tuple[torch.Tensor, Dict]:
-    """Unified LM entry.  Returns (logits (b, 1, Vp), cache).
+    """Unified LM entry.  Returns (logits (b, 1, Vp), cache); serving
+    has no use for the MoE aux loss, which ``decoder_forward`` returns.
 
     ``params`` should already be in ``compute_dtype`` (``Model.load`` and
     ``BatchServer`` cast once); leaves in another dtype are cast here,
@@ -161,7 +181,7 @@ def lm_apply(params: Dict, batch: Dict, cfg, mode: str = "prefill",
     positions = None
     if mode == "prefill":
         positions = make_positions(cfg, b, s, tokens.device)
-    x, new_cache = decoder_forward(
+    x, new_cache, _ = decoder_forward(
         params["layers"], x, cfg, positions, mode=mode, cache=cache,
         cur_len=cur_len, chunk=chunk, seq_capacity=seq_capacity)
     x = ll.apply_norm(params["final_norm"], x[:, -1:], cfg)

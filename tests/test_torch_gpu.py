@@ -6,13 +6,15 @@ machine that has none:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 
-Tolerances are ``tests/test_kernels.py``'s: 2e-5 in f32, 2e-2 in bf16.
+Tolerances are ``tests/test_kernels.py``'s: 2e-5 in f32 and 2e-2 in bf16
+for flash attention, 1e-4 and 3e-2 for the expert MLP.
 """
 
 import pytest
 import torch
 
 from repro_torch.kernels.flash_attention import ops
+from repro_torch.kernels.moe_mlp import ops as moe_ops
 
 # (b, s, h, kvh, d, window): the sweep of tests/test_kernels.py, then
 # ragged s, GQA, d=16, a window that is not a multiple of the tile and
@@ -79,3 +81,56 @@ def test_flash_attention_kernel_strided_layout(card):
     want = ops.flash_attention_plain(q, k, v)
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
                                rtol=2e-2)
+
+
+# (g, e, c, d, f): the moe_mlp sweep of tests/test_kernels.py, the ragged
+# capacities of tests/test_torch_moe_mlp.py, and olmoe-1b-7b's widths
+# (D=2048, F=1024, E=64) at the capacities its prefill (C=25, 276, 320)
+# and decode (G=4, C=1) give
+MOE_CASES = [(2, 4, 128, 64, 256), (1, 2, 64, 128, 512), (2, 2, 128, 32, 128),
+             (1, 4, 1, 64, 256), (4, 4, 1, 32, 128), (1, 4, 25, 64, 256),
+             (2, 3, 25, 128, 128), (1, 64, 25, 2048, 1024),
+             (1, 64, 276, 2048, 1024), (1, 64, 320, 2048, 1024),
+             (4, 64, 1, 2048, 1024)]
+MOE_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+def _moe_inputs(card, g, e, c, d, f, dtype):
+    gen = torch.Generator(device=card).manual_seed(g * 7 + c * 13 + d)
+    x = torch.randn(g, e, c, d, generator=gen, device=card).to(dtype)
+    wi, wg = (torch.randn(e, d, f, generator=gen, device=card)
+              .div_(d ** 0.5).to(dtype) for _ in range(2))
+    wo = torch.randn(e, f, d, generator=gen, device=card).div_(f ** 0.5)
+    return x, wi, wg, wo.to(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,e,c,d,f", MOE_CASES)
+def test_moe_mlp_kernel(card, g, e, c, d, f, dtype):
+    x, wi, wg, wo = _moe_inputs(card, g, e, c, d, f, dtype)
+    n0 = moe_ops.expert_mlp.launches
+    got = moe_ops.expert_mlp(x, wi, wg, wo)
+    torch.cuda.synchronize()
+    assert moe_ops.expert_mlp.launches == n0 + 1
+    want = moe_ops.expert_mlp_plain(x, wi, wg, wo)
+    assert got.dtype == dtype and got.shape == x.shape
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=MOE_TOL[dtype], rtol=MOE_TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [1, 64])
+def test_moe_mlp_kernel_keeps_h_in_f32(card, c):
+    """In bf16 the kernel's outputs differ from the plain version's (f32
+    h) in fewer places than they would with h rounded to bf16 before the
+    down projection."""
+    args = _moe_inputs(card, 1, 8, c, 256, 512, torch.bfloat16)
+    got = moe_ops.expert_mlp(*args)
+    want = moe_ops.expert_mlp_plain(*args)
+    x, wi, wg, wo = (t.float() for t in args)
+    h = torch.einsum("gecd,edf->gecf", x, wi)
+    h = h * torch.sigmoid(h) * torch.einsum("gecd,edf->gecf", x, wg)
+    rounded = torch.einsum("gecf,efd->gecd", h.bfloat16().float(), wo)
+    share = (got != want).float().mean()
+    assert share < (rounded.bfloat16() != want).float().mean()

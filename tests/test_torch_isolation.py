@@ -93,17 +93,32 @@ def test_launcher_runs_on_cpu_when_asked(capsys):
     assert "server.requests 2" in out
 
 
+def test_launcher_serves_olmoe_on_cpu(capsys):
+    from repro_torch.launch import serve as launch_serve
+    launch_serve.main(["--arch", "olmoe-1b-7b", "--requests", "3",
+                       "--max-new", "2", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "req 2:" in out and "server.requests 3" in out
+
+
+def test_moe_archs_resolve_in_the_port():
+    from repro_torch.configs import get_config
+    for name in ("olmoe-1b-7b", "mixtral-8x22b"):
+        cfg = get_config(name)
+        assert cfg.family == "moe" and cfg.act == "swiglu"
+
+
 def test_unported_archs_and_families_name_their_roadmap_item():
     from dataclasses import replace
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("olmoe-1b-7b")
+        get_config("rwkv6-7b")
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("no-such-arch")
-    moe = replace(get_config("stablelm-1.6b"), family="moe")
+    ssm = replace(get_config("stablelm-1.6b"), family="ssm")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(moe)
+        build_model(ssm)
 
 
 def test_config_copies_match_the_jax_package():

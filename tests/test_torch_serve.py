@@ -8,6 +8,10 @@
   bf16 cache.
 * The port's server emits what its own sequential greedy decode emits
   (prefill, then one-token decode steps on a batch of one).
+
+Both run on ``smoke(stablelm-1.6b)`` and on ``smoke(olmoe-1b-7b)``, whose
+MoE layers route each decode step's batch of slots as one group per
+slot.
 """
 
 import dataclasses
@@ -50,10 +54,10 @@ class JaxF32Model(JaxModel):
         return logits, cache
 
 
-@pytest.fixture(scope="module")
-def setup():
-    jcfg = jax_smoke(jax_get_config("stablelm-1.6b"))
-    cfg = smoke(get_config("stablelm-1.6b"))
+@pytest.fixture(scope="module", params=["stablelm-1.6b", "olmoe-1b-7b"])
+def setup(request):
+    jcfg = jax_smoke(jax_get_config(request.param))
+    cfg = smoke(get_config(request.param))
     jparams = JaxModel(jcfg).init(jax.random.PRNGKey(1))
     params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg, "cpu")
     rng = np.random.default_rng(3)
