@@ -3,26 +3,30 @@
 
     python3 chip_smoke.py [--seed N]
 
-Two paths, each at full width with random weights from --seed, in bf16:
-stablelm-1.6b (dense; prefill attention in the flash-attention kernel) and
-then olmoe-1b-7b (MoE; the same attention kernel, and the expert FFN in
-the moe_mlp kernel).  Phases, each of which raises on failure (the script
-then exits non-zero):
+Three paths, each at full width with random weights from --seed, in bf16:
+stablelm-1.6b served (dense; prefill attention in the flash-attention
+kernel), olmoe-1b-7b served (MoE; the same attention kernel, and the
+expert FFN in the moe_mlp kernel), and stablelm-1.6b trained (AdamW with
+int8 gradient compression, whose quantization is the quantize kernel).
+Phases, each of which raises on failure (the script then exits non-zero):
 
 1. card     -- the card's name and power limit (nvidia-smi), torch and CUDA
-2. build    -- compile both kernels from the sources in this checkout,
-               one nvcc each (sm_90a), and print the compiler's report
+2. build    -- compile the three kernels from the sources in this checkout,
+               one nvcc each (sm_90a), all started together, and print the
+               compiler's report
 3. sweep    -- each kernel against its plain PyTorch version on the card:
                flash over the sweep of tests/test_kernels.py x {f32, bf16}
                plus ragged lengths, GQA, d=16 and a window; moe_mlp over
                its sweep of tests/test_kernels.py and olmoe's widths at the
-               ragged capacities its prefill and decode give
+               ragged capacities its prefill and decode give; quantize bit
+               for bit over the sweep of tests/test_kernels.py x block
+               {128, 256}, ragged lengths and edge rows
 4. model    -- stablelm-1.6b: a 2048-token prefill through the kernel path,
                and through the plain attention with the same weights;
                logits compared
 5. serve    -- BatchServer(slots=4, seq_capacity=4096) serves 8 requests of
                128-2048 prompt tokens, 32 new tokens each: the main path,
-               with both kernels' launch counts read around it
+               with every kernel's launch count read around it
 6. timing   -- flash kernel, plain version and scaled_dot_product_attention
                (a yardstick the port never calls) at the main path's shape,
                then the kernel alone at each prompt length the serve run had
@@ -37,6 +41,22 @@ then exits non-zero):
                shapes, where the kernel is also checked to keep h in f32,
                and alone at three one-wave shapes that tell whether L2,
                device memory or the block itself sets its pace
+9. train    -- olmoe freed; stablelm-1.6b, f32 master params drawn on the
+               card, 10 steps of build_train_step on 4 x 2048 tokens of the
+               synthetic pipeline with grad_compress: finite, falling loss,
+               one quantize launch per parameter leaf per step and no
+               forward-only kernel launch
+10. grads   -- one more step's real gradients plus error buffer, leaf by
+               leaf: the quantize kernel against its plain version, bit for
+               bit; compress_gradients timed against the step
+11. qtiming -- the quantize kernel and its plain version on the largest
+               leaf and over all leaves, against the bytes bound
+12. tprofile -- torch.profiler over 2 train steps: the device's busy share
+               and device time by step phase and by kernel
+13. moetrain -- olmoe-1b-7b at full width cut to 2 of its 16 layers (full
+               depth does not fit one card in f32 with AdamW): 2 steps with
+               grad_compress, finite loss, a nonzero aux loss, a gradient
+               on every expert and on the router
 
 It prints the kernel table as one JSON line, then the card's name and power
 limit, then the result line {"ok": true, "device": {...}} last.  Without a
@@ -51,12 +71,14 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 ARCH, MOE_ARCH = "stablelm-1.6b", "olmoe-1b-7b"
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
+PEAK_F32_FLOPS = 67e12       # H100 SXM f32 outside the tensor cores
 SERVE_REQUESTS, SERVE_SLOTS, SERVE_CAP, SERVE_NEW = 8, 4, 4096, 32
 PROFILE_REQUESTS, PROFILE_NEW, PROFILE_TOP = 4, 8, 8
 MAIN_SHAPE = dict(b=1, s=2048, h=32, d=64)    # stablelm prefill attention
@@ -85,6 +107,14 @@ MOE_SWEEP = [(2, 4, 128, 64, 256), (1, 2, 64, 128, 512), (2, 2, 128, 32, 128),
              (1, 64, 276, 2048, 1024), (1, 64, 320, 2048, 1024),
              (4, 64, 1, 2048, 1024)]
 MOE_PREFILL, MOE_DECODE = (1, 64, 320, 2048, 1024), (4, 64, 1, 2048, 1024)
+# training: stablelm-1.6b at full width and depth on 4 x 2048 tokens
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_PROFILE_STEPS = 4, 2048, 10, 2
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 2, 2
+# quantize: tests/test_kernels.py's lengths, then ragged ones
+QUANT_SIZES = [256, 1000, 4096, 65536, 1, 77, 3 * 256 + 5, 1000003]
+# operations per element of the quantize function: |x|, max, x / scale,
+# round, and the two sides of the clip
+QUANT_OPS = 6
 
 
 def check(cond: bool, msg: str) -> None:
@@ -212,7 +242,8 @@ def phase_serve(torch, np, cfg, model, params, counters, seed: int,
     moe = cfg.family == "moe"
     want = {"flash_attention": cfg.n_layers * SERVE_REQUESTS,
             "moe_mlp": (cfg.n_layers * (SERVE_REQUESTS + srv.decode_steps)
-                        if moe else 0)}
+                        if moe else 0),
+            "quantize": 0}
     for n, got in launches.items():
         check(got == want[n], f"{n} launched {got} times in the {cfg.name} "
                               f"serve run, want {want[n]}")
@@ -283,6 +314,16 @@ def phase_lengths(torch, ops, lens, n_layers: int, card: str) -> None:
           f"each) [{card}]")
 
 
+def _trace_events(prof) -> list:
+    """The events of a finished profile, through its Chrome trace written
+    to a temporary directory."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        return json.loads(path.read_text())["traceEvents"]
+
+
 def _busy_us(spans, lo: float, hi: float) -> float:
     """Length of the union of ``spans`` (sorted (start, end)) inside
     [lo, hi)."""
@@ -322,11 +363,7 @@ def phase_profile(torch, np, cfg, model, params, seed: int, card: str):
         with record_function("serve"):
             srv.serve(reqs)
             torch.cuda.synchronize()
-    trace = ROOT / "chiprun_out" / "profile_trace.json"
-    trace.parent.mkdir(exist_ok=True)
-    prof.export_chrome_trace(str(trace))
-    events = json.loads(trace.read_text())["traceEvents"]
-    trace.unlink()
+    events = _trace_events(prof)
     dev = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
                  if e.get("ph") == "X" and e.get("cat") in
                  ("kernel", "gpu_memcpy", "gpu_memset"))
@@ -487,6 +524,298 @@ def phase_moe_waves(torch, moe_ops, card: str) -> None:
         del args
 
 
+def _same_bits(torch, a, b) -> bool:
+    """Equal bit for bit (f32 compared as int32, so a NaN equals itself)."""
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def phase_quantize_sweep(torch, q_ops, quantize_plain) -> None:
+    """The quantize kernel against its plain version, bit for bit: the
+    padding wrapper over tests/test_kernels.py's lengths and ragged ones,
+    then rows that hold exact half-quanta (x / scale = k + 0.5, rounded
+    half to even), all zeros, absmax 1e-30 and 1e30."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    for block in (128, 256):
+        for n in QUANT_SIZES:
+            x = torch.randn(n, generator=gen, device="cuda") * 3.0
+            q, s, pad = q_ops.quantize(x, block=block)
+            qp, sp = quantize_plain(F.pad(x, (0, pad)).reshape(-1, block))
+            ok = _same_bits(torch, q, qp) and _same_bits(torch, s, sp)
+            print(f"quantize sweep n={n} block={block} nb={q.shape[0]}: "
+                  f"{'bit-exact' if ok else 'FAIL'}")
+            check(ok, f"quantize kernel differs from its plain version "
+                      f"(n={n}, block={block})")
+        x = torch.randn(4099, block, generator=gen, device="cuda")
+        k = torch.arange(block - 2, device="cuda", dtype=torch.float32)
+        x[0, :-2] = (k - (block // 2 - 1) + 0.5) * 0.5   # x / scale = k + .5
+        x[0, -2], x[0, -1] = 63.5, 0.0                    # scale 0.5
+        x[1] = 0.0
+        x[2] *= 1e-30
+        x[3] *= 1e30
+        q, s = q_ops.quantize_blocks(x)
+        qp, sp = quantize_plain(x)
+        ok = (_same_bits(torch, q, qp) and _same_bits(torch, s, sp)
+              and float(s[0]) == 0.5 and not bool(q[1].any()))
+        print(f"quantize edge rows block={block} (half-quanta, zeros, "
+              f"1e-30, 1e30, 4099 rows): {'bit-exact' if ok else 'FAIL'}")
+        check(ok, f"quantize kernel edge rows (block={block})")
+
+
+def _train_setup(torch, cfg, seed: int):
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.models import build_model
+    from repro_torch.train import (TrainOptions, build_train_step,
+                                   init_train_state)
+    model = build_model(cfg)                       # bf16 compute
+    opts = TrainOptions(grad_compress=True, warmup=2, total_steps=TRAIN_STEPS)
+    state = init_train_state(model, seed, opts, "cuda")
+    pipe = SyntheticPipeline(cfg, ShapeConfig("chip_train", TRAIN_SEQ,
+                                              TRAIN_BATCH, "train"), seed=seed)
+    return model, opts, state, build_train_step(model, opts), pipe
+
+
+def _run_steps(torch, step, state, batches, counters):
+    """The steps, with every launch count set to 0 just before and read
+    just after; each step's host time ends in reading its metrics."""
+    import math
+    from repro_torch.models.common import leaves
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    hist = []
+    for b in batches:
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        m = {k: float(v) for k, v in m.items()}
+        m["s"] = time.perf_counter() - t0
+        hist.append(m)
+    launches = {n: w.launches for n, w in counters.items()}
+    for i, m in enumerate(hist):
+        check(all(math.isfinite(m[k]) for k in ("loss", "grad_norm")),
+              f"step {i}: loss {m['loss']}, grad_norm {m['grad_norm']}")
+    n_leaves = len(list(leaves(state["params"])))
+    want = {"flash_attention": 0, "moe_mlp": 0,
+            "quantize": n_leaves * len(batches)}
+    for n, got in launches.items():
+        check(got == want[n], f"{n} launched {got} times in the train "
+                              f"steps, want {want[n]}")
+    return state, hist, launches, n_leaves
+
+
+def _eval_loss(torch, model, params, batch) -> float:
+    from repro_torch.models.layers import cross_entropy
+    with torch.no_grad():
+        logits, _ = model.train_logits(params, batch)
+        return float(cross_entropy(logits, batch["labels"], model.cfg,
+                                   mask=batch["mask"]))
+
+
+def phase_train(torch, cfg, counters, seed: int, card: str):
+    """The training path: 10 steps of stablelm-1.6b at full width."""
+    import statistics
+    from repro_torch.train import batch_to
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, opts, state, step, pipe = _train_setup(torch, cfg, seed)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in _leaves(state["params"]))
+    print(f"train: {cfg.name} state (f32 params, moments, error buffer) "
+          f"drawn in {time.perf_counter() - t0:.1f} s, {n_params / 1e9:.3f} "
+          f"B params, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    batches = [batch_to(pipe.batch(i), "cuda") for i in range(TRAIN_STEPS)]
+    held_out = batch_to(pipe.batch(TRAIN_STEPS), "cuda")
+    loss0 = _eval_loss(torch, model, state["params"], held_out)
+    state, hist, launches, n_leaves = _run_steps(torch, step, state, batches,
+                                                 counters)
+    loss1 = _eval_loss(torch, model, state["params"], held_out)
+    for i, m in enumerate(hist):
+        print(f"train step {i + 1}: loss {m['loss']:.4f} grad_norm "
+              f"{m['grad_norm']:.4f} lr {m['lr']:.3e} {m['s'] * 1e3:.1f} ms")
+    check(hist[-1]["loss"] < hist[0]["loss"],
+          f"loss did not fall: {hist[0]['loss']} -> {hist[-1]['loss']}")
+    print(f"train: loss on a batch no step has seen (pipeline step "
+          f"{TRAIN_STEPS}): {loss0:.4f} before the steps, {loss1:.4f} after")
+    step_ms = statistics.median(m["s"] for m in hist[1:]) * 1e3
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"train {cfg.name} b={TRAIN_BATCH} s={TRAIN_SEQ} bf16 compute, "
+          f"grad_compress: median step {step_ms:.2f} ms (steps 2-"
+          f"{TRAIN_STEPS}; step 1 {hist[0]['s'] * 1e3:.1f} ms) = "
+          f"{tokens / step_ms * 1e3:.1f} tokens/s; {n_leaves} leaves; "
+          f"launches {launches}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    return model, opts, state, step, pipe, launches, step_ms
+
+
+def phase_grads(torch, model, opts, state, batch, step_ms: float, q_ops,
+                quantize_plain, card: str):
+    """One more step's real gradients plus the error buffer: the kernel
+    against its plain version leaf by leaf, bit for bit, on exactly the
+    rows compress_gradients quantizes; then compress_gradients timed."""
+    import torch.nn.functional as F
+    from repro_torch.models.common import leaves
+    from repro_torch.optim import compress_gradients
+    from repro_torch.train.step import loss_and_grads
+    grads, loss, _ = loss_and_grads(model, opts, state["params"], batch)
+    rows, n = [], 0
+    with torch.no_grad():
+        for g, e in zip(leaves(grads), leaves(state["err"])):
+            flat = (g.float() + e).reshape(-1)
+            flat = F.pad(flat, (0, (-flat.numel()) % 256))
+            rows.append(flat.reshape(-1, 256))
+            q, s = q_ops.quantize_blocks(rows[-1])
+            qp, sp = quantize_plain(rows[-1])
+            check(_same_bits(torch, q, qp) and _same_bits(torch, s, sp),
+                  f"quantize kernel differs from its plain version on a "
+                  f"real gradient leaf {tuple(g.shape)}")
+            n += g.numel()
+        print(f"grads: {len(rows)} leaves, {n / 1e9:.4f} B values of "
+              f"grads + error buffer (loss {float(loss):.4f}): kernel q and "
+              f"scales bit-exact against the plain version")
+        comp_ms = cuda_ms(lambda: compress_gradients(grads, state["err"]),
+                          iters=5, warmup=1)
+    print(f"grads: compress_gradients {comp_ms:.3f} ms = "
+          f"{comp_ms / step_ms:.4f} of the median step ({step_ms:.2f} ms) "
+          f"[{card}]")
+    return rows
+
+
+def _quant_bound(torch, n: int, nb: int):
+    """(bound ms, what bounds it): each input byte read once, each output
+    byte written once, at the memory rate; QUANT_OPS operations per
+    element at the f32 rate outside the tensor cores."""
+    t_bytes = (n * 4 + n + nb * 4) / PEAK_BYTES * 1e3
+    t_ops = n * QUANT_OPS / PEAK_F32_FLOPS * 1e3
+    return max((t_bytes, "bytes"), (t_ops, "operations"))
+
+
+def phase_qtiming(torch, q_ops, quantize_plain, rows, card: str):
+    """The kernel and its plain version on the largest leaf's rows and over
+    every leaf's, as a step's compress_gradients quantizes them.  No
+    single PyTorch call computes this function (library: none)."""
+    big = max(rows, key=lambda r: r.numel())
+    q, s = q_ops.quantize_blocks(big)
+    qp, sp = quantize_plain(big)
+    err = max(float((q.int() - qp.int()).abs().max()),
+              float((s - sp).abs().max()))
+    ms = cuda_ms(lambda: q_ops.quantize_blocks(big))
+    plain_ms = cuda_ms(lambda: quantize_plain(big), iters=5, warmup=1)
+    n, nb = big.numel(), big.shape[0]
+    bound_ms, bound_by = _quant_bound(torch, n, nb)
+    print(f"qtiming largest leaf nb={nb} block=256 ({n / 1e6:.1f} M f32): "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library none, bound "
+          f"{bound_ms:.4f} ms ({bound_by}: {(5 * n + 4 * nb) / 1e9:.3f} GB); "
+          f"kernel at {(5 * n + 4 * nb) / ms / 1e9:.3f} TB/s, "
+          f"{ms / bound_ms:.2f}x the bound; max_abs_err {err} [{card}]")
+    all_ms = cuda_ms(lambda: [q_ops.quantize_blocks(r) for r in rows],
+                     iters=5, warmup=1)
+    all_plain = cuda_ms(lambda: [quantize_plain(r) for r in rows],
+                        iters=3, warmup=1)
+    n_all = sum(r.numel() for r in rows)
+    nb_all = sum(r.shape[0] for r in rows)
+    all_bound, _ = _quant_bound(torch, n_all, nb_all)
+    print(f"qtiming all {len(rows)} leaves ({n_all / 1e9:.4f} B f32): kernel "
+          f"{all_ms:.4f} ms, plain {all_plain:.4f} ms, bound {all_bound:.4f} "
+          f"ms per step [{card}]")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None,
+                shape=f"nb={nb} block=256 f32 (largest leaf)",
+                per_step={"ms": all_ms, "plain_ms": all_plain,
+                          "bound_ms": all_bound, "leaves": len(rows)})
+
+
+def phase_train_profile(torch, step, state, batches, card: str) -> None:
+    """torch.profiler over TRAIN_PROFILE_STEPS train steps: the device's
+    busy share of the window, device time by step phase (the step's
+    record_function spans) and by kernel."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("train"):
+            for b in batches:
+                state, m = step(state, b)
+            float(m["loss"])
+            torch.cuda.synchronize()
+    events = _trace_events(prof)
+    dev = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                 if e.get("ph") == "X" and e.get("cat") in
+                 ("kernel", "gpu_memcpy", "gpu_memset"))
+    check(len(dev) > 0, "the profiler saw no device activity")
+    win = [e for e in events if e.get("cat") == "user_annotation"
+           and e["name"] == "train"]
+    check(len(win) == 1, f"{len(win)} train spans in the trace")
+    t0, t1 = win[0]["ts"], win[0]["ts"] + win[0]["dur"]
+    busy = _busy_us([(a, b) for a, b, _ in dev], t0, t1)
+    n = len(batches)
+    print(f"tprofile: {n} steps, {(t1 - t0) / 1e3 / n:.2f} ms per step on "
+          f"the host clock (profiled), device busy {busy / 1e3 / n:.2f} ms "
+          f"per step = {busy / (t1 - t0):.4f} of it [{card}]")
+    # the device spans of the step's record_function phases; the backward
+    # pass is launched from autograd's own thread, outside every span, so
+    # it is the rest of the busy time
+    phases = {"forward": 0.0, "compress": 0.0, "optimizer": 0.0}
+    for e in events:
+        if e.get("cat") == "gpu_user_annotation" and e["name"] in phases:
+            phases[e["name"]] += e["dur"]
+    phases["backward (the rest)"] = busy - sum(phases.values())
+    for name, dur in phases.items():
+        print(f"  tprofile phase {name}: device {dur / 1e3 / n:.3f} ms per "
+              f"step = {dur / busy:.4f} of device busy time")
+    by_name = {}
+    for a, b, name in dev:
+        tot, k = by_name.get(name, (0.0, 0))
+        by_name[name] = (tot + b - a, k + 1)
+    groups = {"gemm": ("gemm", "nvjet", "xmma", "cutlass"),
+              "softmax": ("softmax",), "quantize": ("quantize_kernel",)}
+    for g, keys in groups.items():
+        tot = sum(t for name, (t, _) in by_name.items()
+                  if any(k in name.lower() for k in keys))
+        print(f"  tprofile {g} kernels {tot / 1e3 / n:.3f} ms per step = "
+              f"{tot / busy:.4f} of device busy time")
+    for name, (tot, k) in sorted(by_name.items(),
+                                 key=lambda kv: -kv[1][0])[:PROFILE_TOP]:
+        print(f"  tprofile device {tot / 1e3 / n:.3f} ms per step, {k} "
+              f"launches: {name[:110]}")
+
+
+def phase_moe_train(torch, counters, seed: int, card: str) -> dict:
+    """olmoe-1b-7b at full width, depth cut to MOE_TRAIN_LAYERS: the train
+    mode's einsum expert path under autograd, with the aux loss."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.train import batch_to
+    from repro_torch.train.step import loss_and_grads
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_TRAIN_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    model, opts, state, step, pipe = _train_setup(torch, cfg, seed)
+    batches = [batch_to(pipe.batch(i), "cuda")
+               for i in range(MOE_TRAIN_STEPS + 1)]
+    state, hist, launches, n_leaves = _run_steps(
+        torch, step, state, batches[:MOE_TRAIN_STEPS], counters)
+    for i, m in enumerate(hist):
+        print(f"moetrain step {i + 1}: loss {m['loss']:.4f} aux "
+              f"{m['aux_loss']:.4f} grad_norm {m['grad_norm']:.4f} "
+              f"{m['s'] * 1e3:.1f} ms")
+        check(m["aux_loss"] > 0, f"step {i + 1}: aux loss {m['aux_loss']}")
+    grads, _, _ = loss_and_grads(model, opts, state["params"], batches[-1])
+    ffn = grads["layers"]["ffn"]
+    for name in ("wi", "wg", "wo"):
+        per_expert = ffn[name].abs().flatten(2).sum(-1)      # (layers, E)
+        check(bool((per_expert > 0).all()),
+              f"{name}: {int((per_expert == 0).sum())} (layer, expert) "
+              f"pairs got no gradient")
+    check(bool(ffn["router"].abs().sum() > 0), "the router got no gradient")
+    print(f"moetrain {cfg.name} at {MOE_TRAIN_LAYERS} of 16 layers, b="
+          f"{TRAIN_BATCH} s={TRAIN_SEQ}: every expert of every layer and "
+          f"the router have a gradient; {n_leaves} leaves; launches "
+          f"{launches}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -512,6 +841,9 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import kernel, ops
     from repro_torch.kernels.moe_mlp import kernel as moe_kernel
     from repro_torch.kernels.moe_mlp import ops as moe_ops
+    from repro_torch.kernels.quantize import kernel as q_kernel
+    from repro_torch.kernels.quantize import ops as q_ops
+    from repro_torch.kernels.quantize.ref import quantize_plain
     from repro_torch.models import build_model
     from repro_torch.models import layers, moe
 
@@ -520,12 +852,14 @@ def main() -> int:
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
-    # 2. build: one nvcc per source, in turn
-    for mod in (kernel, moe_kernel):
-        t0 = time.perf_counter()
-        path = build.build(mod.SOURCE)
+    # 2. build: one nvcc per source, all started together
+    mods = (kernel, moe_kernel, q_kernel)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(mods)) as pool:
+        paths = list(pool.map(lambda m: build.build(m.SOURCE), mods))
+    print(f"build: {len(mods)} kernels in {time.perf_counter() - t0:.1f} s")
+    for mod, path in zip(mods, paths):
         mod.load()
-        print(f"build: {path.name} in {time.perf_counter() - t0:.1f} s")
         for line in path.with_suffix(".log").read_text().splitlines():
             if "Compiling entry" in line or "registers" in line \
                     or "spill" in line:
@@ -534,8 +868,9 @@ def main() -> int:
     # 3. each kernel against its plain version
     phase_sweep(torch, ops)
     phase_moe_sweep(torch, moe_ops)
+    phase_quantize_sweep(torch, q_ops, quantize_plain)
     counters = {"flash_attention": ops.flash_attention,
-                "moe_mlp": moe_ops.expert_mlp}
+                "moe_mlp": moe_ops.expert_mlp, "quantize": q_ops.quantize}
 
     # 4. full width, kernel path against plain path
     cfg = get_config(ARCH)
@@ -585,7 +920,31 @@ def main() -> int:
     phase_moe_waves(torch, moe_ops, card)
     phase_profile(torch, np, mcfg, mmodel, mparams, args.seed, card)
 
-    by_path = {ARCH: dense_launches, MOE_ARCH: moe_launches}
+    # 9-12. training stablelm-1.6b: olmoe's parameters freed first
+    del mparams, mmodel
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, opts, state, step, pipe, train_launches, step_ms = phase_train(
+        torch, cfg, counters, args.seed, card)
+    from repro_torch.train import batch_to
+    extra = [batch_to(pipe.batch(TRAIN_STEPS + 1 + i), "cuda")
+             for i in range(TRAIN_PROFILE_STEPS + 1)]
+    rows = phase_grads(torch, model, opts, state, extra[0], step_ms, q_ops,
+                       quantize_plain, card)
+    tq = phase_qtiming(torch, q_ops, quantize_plain, rows, card)
+    del rows
+    phase_train_profile(torch, step, state, extra[1:], card)
+
+    # 13. olmoe-1b-7b's train mode, stablelm's train state freed first
+    del state, step, model, extra
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_train_launches = phase_moe_train(torch, counters, args.seed, card)
+
+    by_path = {ARCH: dense_launches, MOE_ARCH: moe_launches,
+               f"{ARCH} train": train_launches,
+               f"{MOE_ARCH} train ({MOE_TRAIN_LAYERS} layers)":
+                   moe_train_launches}
     rows = [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -601,6 +960,12 @@ def main() -> int:
          "launches_by_path": {a: v["moe_mlp"] for a, v in by_path.items()},
          **tm, "shape": _moe_shape(MOE_PREFILL) + " (prefill)",
          "decode": {**td, "shape": _moe_shape(MOE_DECODE)}},
+        {"name": "quantize", "route": "cuda",
+         "source": "src/repro_torch/kernels/quantize/csrc/quantize.cu",
+         "replaces": "src/repro/kernels/quantize/kernel.py:19",
+         "launches": train_launches["quantize"],
+         "launches_by_path": {a: v["quantize"] for a, v in by_path.items()},
+         **tq},
     ]
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -13,16 +13,18 @@ from repro_torch.configs.base import (  # noqa: F401
     ArchConfig, ShapeConfig, SHAPES, smoke, smoke_shape,
 )
 from repro_torch.configs.deepseek_67b import CONFIG as _deepseek
+from repro_torch.configs.minicpm_2b import CONFIG as _minicpm
 from repro_torch.configs.mixtral_8x22b import CONFIG as _mixtral
+from repro_torch.configs.nemotron_4_15b import CONFIG as _nemotron
 from repro_torch.configs.olmoe_1b_7b import CONFIG as _olmoe
 from repro_torch.configs.stablelm_1_6b import CONFIG as _stablelm
 
 REGISTRY: Dict[str, ArchConfig] = {
-    c.name: c for c in (_stablelm, _deepseek, _olmoe, _mixtral)}
+    c.name: c for c in (_stablelm, _deepseek, _minicpm, _nemotron, _olmoe,
+                        _mixtral)}
 
 # what a later slice brings, by ROADMAP.md Queue 1 item
 ROADMAP: Dict[str, str] = {
-    "train": "ROADMAP.md Queue 1 item 1 (training slice)",
     "ssm": "ROADMAP.md Queue 1 item 4 (RWKV slice with rwkv6_wkv)",
     "hybrid": "ROADMAP.md Queue 1 item 5 (Mamba and hybrid slice)",
     "vlm": "ROADMAP.md Queue 1 item 6 (VLM and audio slice)",
@@ -30,7 +32,6 @@ ROADMAP: Dict[str, str] = {
 }
 # archs of the JAX registry the port does not run yet
 PENDING: Dict[str, str] = {
-    "minicpm-2b": ROADMAP["train"], "nemotron-4-15b": ROADMAP["train"],
     "rwkv6-7b": ROADMAP["ssm"], "jamba-v0.1-52b": ROADMAP["hybrid"],
     "qwen2-vl-7b": ROADMAP["vlm"], "whisper-small": ROADMAP["audio"],
 }

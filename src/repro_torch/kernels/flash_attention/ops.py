@@ -13,6 +13,7 @@ import math
 
 import torch
 
+from repro_torch.kernels import refuse_autograd
 from repro_torch.kernels.flash_attention import kernel
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -55,6 +56,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """Causal (optionally sliding-window) attention -> (b, s, h, d)."""
     _check(q, k, v)
+    refuse_autograd("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import refuse_autograd
 from repro_torch.kernels.moe_mlp import kernel
 from repro_torch.kernels.moe_mlp.ref import expert_mlp_plain
 
@@ -43,6 +44,7 @@ def expert_mlp(x: torch.Tensor, wi: torch.Tensor, wg: torch.Tensor,
                wo: torch.Tensor) -> torch.Tensor:
     """Per-expert SwiGLU FFN over capacity blocks -> (G, E, C, D)."""
     _check(x, wi, wg, wo)
+    refuse_autograd("expert_mlp", x, wi, wg, wo)
     if x.device.type == "cpu":
         return expert_mlp_plain(x, wi, wg, wo)
     if x.device.type != "cuda":

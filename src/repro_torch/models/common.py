@@ -9,7 +9,7 @@ of the JAX tree are not kept (sharding is a later slice).
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -60,6 +60,27 @@ def map_leaves(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
         return {k: map_leaves(fn, tree[k], *(r[k] for r in rest))
                 for k in tree}
     return fn(tree, *rest)
+
+
+def leaves(tree: Tree) -> Iterator[torch.Tensor]:
+    """The leaves of ``tree`` in the JAX package's order (``jax.tree.leaves``
+    sorts dict keys), which fixes the order of sums over leaves."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from leaves(tree[k])
+    else:
+        yield tree
+
+
+def unflatten(tree: Tree, values) -> Tree:
+    """A tree shaped like ``tree`` holding ``values`` in ``leaves`` order."""
+    it = iter(values)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        return next(it)
+    return build(tree)
 
 
 def cast(tree: Tree, dtype: torch.dtype,

@@ -1,6 +1,7 @@
 """Layer library of the port, dense subset: norms, partial RoPE, GQA
-attention (prefill through the flash kernel on the GPU, KV-cache decode),
-MLPs and embeddings.
+attention (train mode in plain PyTorch under autograd, prefill through
+the flash kernel on the GPU, KV-cache decode), MLPs, embeddings and the
+cross-entropy loss.
 
 Each function mirrors the one of the same name in
 ``repro.models.layers`` and keeps its layouts: activations
@@ -14,6 +15,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import ROADMAP
 from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -119,6 +121,19 @@ def _repeat_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
     return k.repeat_interleave(n_heads // kvh, dim=2)
 
 
+def qkv_project(p: Dict, x: torch.Tensor, cfg, positions: torch.Tensor):
+    """Returns q (b,s,h,hd), k/v (b,s,h,hd) (kv repeated), post-RoPE."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    if cfg.qk_norm:
+        q = _qk_norm(q, p["q_norm"], cfg.norm_eps)
+        k = _qk_norm(k, p["k_norm"], cfg.norm_eps)
+    q = apply_rope(cfg, q, positions)
+    k = apply_rope(cfg, k, positions)
+    return q, _repeat_kv(k, cfg.n_heads), _repeat_kv(v, cfg.n_heads)
+
+
 def naive_causal_attention(q, k, v, q_pos, kv_pos, window: int = 0):
     """Reference attention.  q/k/v: (b, s, h, hd); positions (b, s)."""
     hd = q.shape[-1]
@@ -132,10 +147,30 @@ def naive_causal_attention(q, k, v, q_pos, kv_pos, window: int = 0):
     return torch.einsum("bhqs,bshk->bqhk", probs.to(q.dtype), v)
 
 
+def _chunk_step(acc, m, l, qf, kci, vci, pci, q_pos, window: int):
+    """One KV chunk of the online softmax: (acc, m, l) -> updated."""
+    s = torch.einsum("bqhk,bshk->bhqs", qf, kci).float()
+    mask = pci[:, None, None, :] <= q_pos[:, None, :, None]
+    if window:
+        mask &= pci[:, None, None, :] > (q_pos[:, None, :, None] - window)
+    s = torch.where(mask, s, NEG_INF)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    alpha = torch.exp(m - m_new)
+    p = torch.exp(s - m_new[..., None])
+    l = l * alpha + p.sum(dim=-1)
+    acc = acc * alpha[..., None] + torch.einsum(
+        "bhqs,bshk->bhqk", p.to(qf.dtype), vci).float()
+    return acc, m_new, l
+
+
 def blockwise_attention(q, k, v, q_pos, kv_pos, window: int = 0,
                         chunk: int = 1024):
     """Online-softmax attention over KV chunks, in plain PyTorch.
-    q: (b, sq, h, hd); k/v: (b, skv, h, hd)."""
+    q: (b, sq, h, hd); k/v: (b, skv, h, hd).
+
+    Each chunk step is checkpointed, as ``jax.checkpoint(body)`` in the
+    JAX function: the backward pass recomputes a chunk's f32 scores and
+    probabilities instead of keeping them across the whole KV axis."""
     b, sq, h, hd = q.shape
     skv = k.shape[1]
     if skv % chunk:
@@ -145,35 +180,31 @@ def blockwise_attention(q, k, v, q_pos, kv_pos, window: int = 0,
     m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
     for c0 in range(0, skv, chunk):
-        kci, vci = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk]
-        pci = kv_pos[:, c0:c0 + chunk]
-        s = torch.einsum("bqhk,bshk->bhqs", qf, kci).float()
-        mask = pci[:, None, None, :] <= q_pos[:, None, :, None]
-        if window:
-            mask &= pci[:, None, None, :] > (q_pos[:, None, :, None] - window)
-        s = torch.where(mask, s, NEG_INF)
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        alpha = torch.exp(m - m_new)
-        p = torch.exp(s - m_new[..., None])
-        l = l * alpha + p.sum(dim=-1)
-        acc = acc * alpha[..., None] + torch.einsum(
-            "bhqs,bshk->bhqk", p.to(q.dtype), vci).float()
-        m = m_new
+        acc, m, l = checkpoint(
+            _chunk_step, acc, m, l, qf, k[:, c0:c0 + chunk],
+            v[:, c0:c0 + chunk], kv_pos[:, c0:c0 + chunk], q_pos, window,
+            use_reentrant=False)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.transpose(1, 2).to(q.dtype)              # (b, sq, h, hd)
 
 
 def attention_train(p: Dict, x: torch.Tensor, cfg, positions: torch.Tensor,
-                    chunk: int = 2048, return_kv: bool = False):
-    """Prefill attention with output projection.
+                    chunk: int = 2048, return_kv: bool = False,
+                    mode: str = "prefill"):
+    """Training/prefill attention with output projection.
 
-    On the CPU it takes the naive or blockwise branch exactly as the JAX
-    package does.  On any other device the attention runs in the flash
-    kernel (which raises for a device it has no kernel for); the kernel
-    takes the unrepeated kv heads and masks by index (prefill positions
-    are ``0..s-1``, so index and position agree).
-    ``return_kv`` also returns the pre-repeat (b, s, kvh, hd) k and v.
+    ``mode="train"`` is the JAX function on every device: the naive
+    branch for ``s <= chunk``, the blockwise one above it, in plain
+    PyTorch under autograd (the flash kernel is forward-only, in both
+    packages).  ``mode="prefill"`` takes those branches on the CPU and
+    the flash kernel on any other device (which raises for a device it
+    has no kernel for); the kernel takes the unrepeated kv heads and
+    masks by index (prefill positions are ``0..s-1``, so index and
+    position agree).  ``return_kv`` also returns the pre-repeat
+    (b, s, kvh, hd) k and v.
     """
+    if mode not in ("train", "prefill"):
+        raise ValueError(f"attention_train has no mode {mode!r}")
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
@@ -182,7 +213,7 @@ def attention_train(p: Dict, x: torch.Tensor, cfg, positions: torch.Tensor,
         k = _qk_norm(k, p["k_norm"], cfg.norm_eps)
     q = apply_rope(cfg, q, positions)
     k = apply_rope(cfg, k, positions)
-    if x.device.type == "cpu":
+    if mode == "train" or x.device.type == "cpu":
         kr, vr = _repeat_kv(k, cfg.n_heads), _repeat_kv(v, cfg.n_heads)
         if kr.shape[1] > chunk:
             out = blockwise_attention(q, kr, vr, positions, positions,
@@ -338,3 +369,21 @@ def unembed(p: Dict, x: torch.Tensor, cfg) -> torch.Tensor:
     if cfg.tie_embeddings:
         return torch.einsum("bsd,vd->bsv", x, p["table"])
     return torch.einsum("bsd,dv->bsv", x, p["head"])
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, cfg,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token cross entropy in f32; the padded vocab entries are
+    masked out; logits (b, s, Vp)."""
+    vp = logits.shape[-1]
+    logits = logits.float()
+    if vp != cfg.vocab_size:
+        pad_mask = torch.arange(vp, device=logits.device) < cfg.vocab_size
+        logits = torch.where(pad_mask, logits, NEG_INF)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

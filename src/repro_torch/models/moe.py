@@ -15,11 +15,13 @@ whenever capacity overflows or router probabilities tie:
 * ``jnp.argsort`` is stable: ``torch.argsort(..., stable=True)``;
 * expert segments are found with ``searchsorted`` side left and right.
 
-With a SwiGLU activation the expert compute goes through
-``expert_mlp`` on every device: the hand-written kernel on the card, its
-plain version on the CPU, both in f32 as the TPU kernel computes it
-(the JAX model's einsum path rounds h to the compute dtype).  Other
-activations take the einsum path of the JAX function.
+In prefill and decode, with a SwiGLU activation, the expert compute
+goes through ``expert_mlp`` on every device: the hand-written kernel on
+the card, its plain version on the CPU, both in f32 as the TPU kernel
+computes it (the JAX model's einsum path rounds h to the compute dtype).
+The train mode, and every other activation, take the einsum path of the
+JAX function under autograd (the kernel is forward-only, in both
+packages).
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.moe_mlp.ops import expert_mlp
 from repro_torch.models.common import param
-from repro_torch.models.layers import _gelu_tanh
+from repro_torch.models.layers import _gelu_tanh, _silu
 
 MAX_GROUP_TOKENS = 4096
 
@@ -69,9 +71,10 @@ def load_balance_loss(probs: torch.Tensor, idx: torch.Tensor,
     return n_experts * torch.sum(f * P)
 
 
-def apply_moe(p: Dict, x: torch.Tensor, cfg
+def apply_moe(p: Dict, x: torch.Tensor, cfg, mode: str = "prefill"
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> (y (B, S, D), aux_loss scalar f32)."""
+    """x: (B, S, D) -> (y (B, S, D), aux_loss scalar f32).  ``mode`` is
+    the model's: "train" takes the einsum expert path."""
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
     sub = max(1, S // MAX_GROUP_TOKENS) if S % MAX_GROUP_TOKENS == 0 else 1
@@ -106,12 +109,16 @@ def apply_moe(p: Dict, x: torch.Tensor, cfg
     xin = xin.reshape(G, E, C, D)
 
     # --- expert compute --------------------------------------------------
-    if cfg.act == "swiglu":
+    if cfg.act == "swiglu" and mode != "train":
         out = expert_mlp(xin, p["wi"], p["wg"], p["wo"])   # (G,E,C,D)
     else:
         h = torch.einsum("gecd,edf->gecf", xin, p["wi"])
-        h = (torch.square(F.relu(h)) if cfg.act == "sq_relu"
-             else _gelu_tanh(h))
+        if cfg.act == "swiglu":
+            h = _silu(h) * torch.einsum("gecd,edf->gecf", xin, p["wg"])
+        elif cfg.act == "sq_relu":
+            h = torch.square(F.relu(h))
+        else:
+            h = _gelu_tanh(h)
         out = torch.einsum("gecf,efd->gecd", h, p["wo"])
 
     # --- combine: gather each (token, k) slot's output, weight by gate --

@@ -3,9 +3,11 @@
 Mirrors ``repro.models.transformer``: parameters keep the stacked
 leading layer axis, and a Python loop over layers takes the place of
 ``lax.scan``.  MoE layers return the load-balance aux loss, which
-``decoder_forward`` sums over layers as the JAX function does.  Two
+``decoder_forward`` sums over layers as the JAX function does.  Three
 modes:
 
+  train   -> logits over all positions, each layer checkpointed
+             (recomputed in the backward pass, as ``jax.checkpoint``)
   prefill -> logits at the last position + a stacked KV cache
   decode  -> one-token step that updates the stacked cache IN PLACE
 
@@ -14,9 +16,10 @@ Other families raise ``NotImplementedError`` naming their ROADMAP item.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import ROADMAP
 from repro_torch.models import layers as ll
@@ -24,6 +27,7 @@ from repro_torch.models import moe as me
 from repro_torch.models.common import cast, stack_inits
 
 FAMILIES = ("dense", "moe")
+MODES = ("train", "prefill", "decode")
 
 
 def check_family(cfg) -> None:
@@ -103,52 +107,73 @@ def make_positions(cfg, b: int, s: int, device: torch.device) -> torch.Tensor:
 def apply_layer(p: Dict, x: torch.Tensor, cfg, positions, mode: str,
                 cache: Optional[Dict], cur_len, chunk: int,
                 seq_capacity: int
-                ) -> Tuple[torch.Tensor, Dict, Optional[torch.Tensor]]:
-    """Returns (x, new_cache_entry, aux_loss); aux is None for a dense
-    FFN, which adds nothing (and launches nothing) to the sum."""
+                ) -> Tuple[torch.Tensor, Optional[Dict],
+                           Optional[torch.Tensor]]:
+    """Returns (x, new_cache_entry, aux_loss); the cache entry is None in
+    train mode, and aux is None for a dense FFN, which adds nothing (and
+    launches nothing) to the sum."""
     rs = cfg.residual_scale
     h = ll.apply_norm(p["norm1"], x, cfg)
+    new_cache = None
     if mode == "decode":
         mix, new_cache = ll.attention_decode(p["mixer"], h, cfg, cache,
                                              cur_len)
-    else:
+    elif mode == "prefill":
         mix, (k_raw, v_raw) = ll.attention_train(
             p["mixer"], h, cfg, positions, chunk=chunk, return_kv=True)
         new_cache = ll.kv_to_cache(k_raw, v_raw,
                                    kv_capacity(cfg, seq_capacity))
+    else:
+        mix = ll.attention_train(p["mixer"], h, cfg, positions, chunk=chunk,
+                                 mode="train")
     x = x + rs * mix
     h2 = ll.apply_norm(p["norm2"], x, cfg)
     aux = None
     if cfg.is_moe_layer(0):
-        f, aux = me.apply_moe(p["ffn"], h2, cfg)
+        f, aux = me.apply_moe(p["ffn"], h2, cfg, mode=mode)
     else:
         f = ll.apply_mlp(p["ffn"], h2, cfg)
     x = x + rs * f
     return x, new_cache, aux
 
 
-def _layer(tree: Dict, i: int) -> Dict:
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
+def _unstack(tree: Dict, n: int) -> List[Dict]:
+    """The per-layer trees of a stacked tree, as views (a decode step
+    writes its cache entries through them).  Each leaf is split by one
+    ``unbind``, whose backward stacks the layers' gradients in one op
+    (indexing layer by layer would add a full-size zero gradient per
+    layer and leaf)."""
+    split = {k: _unstack(v, n) if isinstance(v, dict) else v.unbind(0)
+             for k, v in tree.items()}
+    return [{k: v[i] for k, v in split.items()} for i in range(n)]
 
 
 def decoder_forward(layers_params: Dict, x: torch.Tensor, cfg, positions,
                     mode: str, cache: Optional[Dict] = None, cur_len=None,
                     chunk: int = 2048, seq_capacity: int = 0
-                    ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
+                    ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
     """Run the decoder stack -> (x, cache, aux_loss summed over layers).
-    Prefill returns a new stacked cache in the compute dtype; decode
-    writes into ``cache`` in place and returns it."""
+    Train returns no cache; prefill returns a new stacked cache in the
+    compute dtype; decode writes into ``cache`` in place and returns it."""
     seq_capacity = seq_capacity or x.shape[1]
     new = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
-        lc = _layer(cache, i) if mode == "decode" else None
-        x, nc, a = apply_layer(_layer(layers_params, i), x, cfg, positions,
-                               mode, lc, cur_len, chunk, seq_capacity)
+    per_layer = _unstack(layers_params, cfg.n_layers)
+    caches = (_unstack(cache, cfg.n_layers) if mode == "decode"
+              else [None] * cfg.n_layers)
+    for lp, lc in zip(per_layer, caches):
+        if mode == "train":
+            x, nc, a = checkpoint(apply_layer, lp, x, cfg, positions, mode,
+                                  None, None, chunk, seq_capacity,
+                                  use_reentrant=False)
+        else:
+            x, nc, a = apply_layer(lp, x, cfg, positions, mode, lc, cur_len,
+                                   chunk, seq_capacity)
         if a is not None:
             aux = aux + a
         new.append(nc)
+    if mode == "train":
+        return x, None, aux
     if mode == "decode":
         return x, cache, aux
     return (x, {n: torch.stack([c[n] for c in new]) for n in ("k", "v")},
@@ -163,26 +188,33 @@ def lm_apply(params: Dict, batch: Dict, cfg, mode: str = "prefill",
              cache: Optional[Dict] = None, cur_len=None, chunk: int = 2048,
              seq_capacity: int = 0,
              compute_dtype: torch.dtype = torch.bfloat16
-             ) -> Tuple[torch.Tensor, Dict]:
-    """Unified LM entry.  Returns (logits (b, 1, Vp), cache); serving
-    has no use for the MoE aux loss, which ``decoder_forward`` returns.
+             ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
+    """Unified LM entry.  Returns (logits, new_cache, aux_loss):
 
-    ``params`` should already be in ``compute_dtype`` (``Model.load`` and
-    ``BatchServer`` cast once); leaves in another dtype are cast here,
-    which the JAX function does on every call.
+      train  : logits (b, s, Vp), no cache
+      prefill: logits (b, 1, Vp) at the last position, + cache
+      decode : logits (b, 1, Vp), + the cache updated in place
+
+    Leaves not in ``compute_dtype`` are cast here, on every call, as the
+    JAX function does: train mode takes the f32 master params (with
+    ``requires_grad``), so the cast is part of the graph and the
+    gradients reach them in f32.  Serving casts once beforehand
+    (``Model.load``, ``BatchServer``), which makes the cast here free.
     """
     check_family(cfg)
-    if mode not in ("prefill", "decode"):
-        raise NotImplementedError(f"mode {mode!r}: {ROADMAP['train']}")
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r}; one of {MODES}")
     params = cast(params, compute_dtype)
     tokens = batch["tokens"]
     b, s = tokens.shape
     x = ll.embed_tokens(params["embed"], tokens, cfg)
     positions = None
-    if mode == "prefill":
+    if mode != "decode":
         positions = make_positions(cfg, b, s, tokens.device)
-    x, new_cache, _ = decoder_forward(
+    x, new_cache, aux = decoder_forward(
         params["layers"], x, cfg, positions, mode=mode, cache=cache,
         cur_len=cur_len, chunk=chunk, seq_capacity=seq_capacity)
-    x = ll.apply_norm(params["final_norm"], x[:, -1:], cfg)
-    return ll.unembed(params["embed"], x, cfg), new_cache
+    if mode != "train":
+        x = x[:, -1:]
+    x = ll.apply_norm(params["final_norm"], x, cfg)
+    return ll.unembed(params["embed"], x, cfg), new_cache, aux

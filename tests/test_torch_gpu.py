@@ -7,7 +7,8 @@ machine that has none:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 
 Tolerances are ``tests/test_kernels.py``'s: 2e-5 in f32 and 2e-2 in bf16
-for flash attention, 1e-4 and 3e-2 for the expert MLP.
+for flash attention, 1e-4 and 3e-2 for the expert MLP.  The quantize
+kernel's q and scales equal its plain version's bit for bit.
 """
 
 import pytest
@@ -15,6 +16,8 @@ import torch
 
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.moe_mlp import ops as moe_ops
+from repro_torch.kernels.quantize import ops as q_ops
+from repro_torch.kernels.quantize.ref import quantize_plain
 
 # (b, s, h, kvh, d, window): the sweep of tests/test_kernels.py, then
 # ragged s, GQA, d=16, a window that is not a multiple of the tile and
@@ -134,3 +137,85 @@ def test_moe_mlp_kernel_keeps_h_in_f32(card, c):
     rounded = torch.einsum("gecf,efd->gecd", h.bfloat16().float(), wo)
     share = (got != want).float().mean()
     assert share < (rounded.bfloat16() != want).float().mean()
+
+
+def _quantize_exact(x):
+    n0 = q_ops.quantize.launches
+    q, s = q_ops.quantize_blocks(x)
+    torch.cuda.synchronize()
+    assert q_ops.quantize.launches == n0 + 1
+    qp, sp = quantize_plain(x)
+    assert torch.equal(q, qp)
+    assert torch.equal(s.view(torch.int32), sp.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block", [128, 256])
+@pytest.mark.parametrize("n", [256, 1000, 4096, 65536, 3 * 256 + 5])
+def test_quantize_kernel(card, n, block):
+    """tests/test_kernels.py's sweep plus a ragged nb, through the padding
+    wrapper, bit for bit."""
+    gen = torch.Generator(device=card).manual_seed(n + block)
+    x = torch.randn(n, generator=gen, device=card) * 3.0
+    q, s, pad = q_ops.quantize(x, block=block)
+    qp, sp = quantize_plain(torch.nn.functional.pad(x, (0, pad))
+                            .reshape(-1, block))
+    assert torch.equal(q, qp) and torch.equal(s, sp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block", [128, 256])
+def test_quantize_kernel_edge_rows(card, block):
+    """Exact half-quanta, an all-zero row, absmax 1e-30 and 1e30, many
+    rows (grid stride) and a NaN row."""
+    gen = torch.Generator(device=card).manual_seed(7)
+    x = torch.randn(4099, block, generator=gen, device=card)
+    k = torch.arange(block - 2, device=card, dtype=torch.float32)
+    x[0, :-2] = (k - (block // 2 - 1) + 0.5) * 0.5   # x / scale = k + 0.5
+    x[0, -2:] = torch.tensor([63.5, 0.0])            # scale 0.5
+    x[1] = 0.0
+    x[2] *= 1e-30
+    x[3] *= 1e30
+    _quantize_exact(x)
+    q, s = q_ops.quantize_blocks(x)
+    assert float(s[1]) == torch.tensor(1e-12).item() and not q[1].any()
+    x[4, 3] = float("nan")
+    q, s = q_ops.quantize_blocks(x)
+    assert torch.isnan(s[4]) and torch.isnan(quantize_plain(x)[1][4])
+
+
+@pytest.mark.gpu
+def test_train_step_on_the_card(card):
+    """Two steps of a smoke stablelm with grad_compress on the card: one
+    quantize launch per parameter leaf per step, no forward-only kernel,
+    and the same losses as the CPU run from the same state (bf16 compute:
+    GEMMs sum in other orders, so 2e-2)."""
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.models import build_model
+    from repro_torch.models.common import leaves, map_leaves
+    from repro_torch.train import (TrainOptions, batch_to, build_train_step,
+                                   init_train_state)
+    cfg = smoke(get_config("stablelm-1.6b"))
+    model = build_model(cfg)
+    opts = TrainOptions(warmup=1, total_steps=4, grad_compress=True)
+    cpu = init_train_state(model, 0, opts, "cpu")
+    gpu = {k: map_leaves(lambda t: t.detach().to(card), v)
+           for k, v in cpu.items()}
+    map_leaves(lambda p: p.requires_grad_(True), gpu["params"])
+    step = build_train_step(model, opts)
+    pipe = SyntheticPipeline(cfg, ShapeConfig("t", 32, 4, "train"), seed=0)
+    n_leaves = len(list(leaves(cpu["params"])))
+    counts = (q_ops.quantize, ops.flash_attention, moe_ops.expert_mlp)
+    for i in range(2):
+        b = pipe.batch(i)
+        before = [c.launches for c in counts]
+        gpu, mg = step(gpu, batch_to(b, card))
+        torch.cuda.synchronize()
+        after = [c.launches for c in counts]
+        assert after[0] - before[0] == n_leaves == 15
+        assert after[1:] == before[1:]
+        cpu, mc = step(cpu, batch_to(b, "cpu"))
+        for k in ("loss", "grad_norm", "lr"):
+            assert abs(float(mg[k]) - float(mc[k])) <= 2e-2 * abs(float(mc[k]))

@@ -126,6 +126,25 @@ def test_attention_train(arch, s, chunk, dtype):
         close(a, b, dtype)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "deepseek-67b",
+                                  "olmoe-1b-7b"])
+def test_qkv_project(arch, dtype):
+    """q and the repeated k/v after qk-norm and RoPE (partial RoPE,
+    GQA with one kv head, qk-norm)."""
+    jcfg, cfg = cfgs(arch)
+    p = jparams(jl.init_attention, jax.random.PRNGKey(6), jcfg, dtype)
+    rng = np.random.default_rng(6)
+    xj, xt = rand(rng, (2, 9, jcfg.d_model), dtype)
+    pos = np.broadcast_to(np.arange(9), (2, 9)).copy()
+    with jax.disable_jit():
+        want = jl.qkv_project(p, xj, jcfg, jnp.asarray(pos), IDENTITY_SHARDER)
+    got = tl.qkv_project(to_torch(p, dtype), xt, cfg, torch.as_tensor(pos))
+    for a, b in zip(want, got):
+        assert b.shape == (2, 9, cfg.n_heads, cfg.head_dim)
+        close(a, b, dtype)
+
+
 @pytest.mark.parametrize("s,capacity", [(5, 8), (8, 8), (11, 8), (16, 8)])
 def test_kv_to_cache(s, capacity):
     rng = np.random.default_rng(5)

@@ -61,18 +61,6 @@ def close(jax_out, torch_out, dtype):
                                atol=TOL[dtype], rtol=TOL[dtype])
 
 
-def port_aux(tp, tokens, cfg, dtype, mode, **kw):
-    """The aux loss of the decoder stack (``lm_apply`` returns logits and
-    cache only).  A decode step writes this step's k/v into the cache,
-    as the ``lm_apply`` call after it does again."""
-    p = cast(tp, TDT[dtype])
-    x = ll.embed_tokens(p["embed"], tokens, cfg)
-    positions = (ttf.make_positions(cfg, *tokens.shape, tokens.device)
-                 if mode == "prefill" else None)
-    return ttf.decoder_forward(p["layers"], x, cfg, positions, mode=mode,
-                               **kw)[2]
-
-
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_prefill_then_decode_matches_jax(arch_params, dtype):
     jcfg, cfg, jp, np_params = arch_params
@@ -89,14 +77,12 @@ def test_prefill_then_decode_matches_jax(arch_params, dtype):
 
     jl, jc, jaux = jax_apply(jp, {"tokens": jnp.asarray(toks, jnp.int32)},
                              jcfg, mode="prefill", seq_capacity=cap)
-    taux = port_aux(tp, torch.as_tensor(toks), cfg, dtype, "prefill",
-                    seq_capacity=cap)
+    tl, tc, taux = ttf.lm_apply(tp, {"tokens": torch.as_tensor(toks)}, cfg,
+                                mode="prefill", seq_capacity=cap,
+                                compute_dtype=TDT[dtype])
     np.testing.assert_allclose(float(taux), float(jaux),
                                **AUX_TOL[dtype])
     assert (float(taux) > 0) == cfg.is_moe_layer(0)
-    tl, tc = ttf.lm_apply(tp, {"tokens": torch.as_tensor(toks)}, cfg,
-                          mode="prefill", seq_capacity=cap,
-                          compute_dtype=TDT[dtype])
     assert tl.shape == (b, 1, 256)
     assert tc["k"].shape == (cfg.n_layers, b, cfg.n_kv_heads,
                              ttf.kv_capacity(cfg, cap), cfg.head_dim)
@@ -110,13 +96,11 @@ def test_prefill_then_decode_matches_jax(arch_params, dtype):
         jl, jc, jaux = jax_apply(jp, {"tokens": jnp.asarray(tok, jnp.int32)},
                                  jcfg, mode="decode", cache=jc,
                                  cur_len=jnp.asarray(cur, jnp.int32))
-        taux = port_aux(tp, torch.as_tensor(tok), cfg, dtype, "decode",
-                        cache=tc, cur_len=cur)
+        tl, tc2, taux = ttf.lm_apply(tp, {"tokens": torch.as_tensor(tok)},
+                                     cfg, mode="decode", cache=tc,
+                                     cur_len=cur, compute_dtype=TDT[dtype])
         np.testing.assert_allclose(float(taux), float(jaux),
-                               **AUX_TOL[dtype])
-        tl, tc2 = ttf.lm_apply(tp, {"tokens": torch.as_tensor(tok)}, cfg,
-                               mode="decode", cache=tc, cur_len=cur,
-                               compute_dtype=TDT[dtype])
+                                   **AUX_TOL[dtype])
         assert tc2 is tc                      # decode writes in place
         close(jl, tl, dtype)
         for n in ("k", "v"):
