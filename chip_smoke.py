@@ -3,24 +3,30 @@
 
     python3 chip_smoke.py [--seed N]
 
-Three paths, each at full width with random weights from --seed, in bf16:
+Four paths, each at full width with random weights from --seed, in bf16:
 stablelm-1.6b served (dense; prefill attention in the flash-attention
 kernel), olmoe-1b-7b served (MoE; the same attention kernel, and the
-expert FFN in the moe_mlp kernel), and stablelm-1.6b trained (AdamW with
-int8 gradient compression, whose quantization is the quantize kernel).
+expert FFN in the moe_mlp kernel), stablelm-1.6b trained (AdamW with int8
+gradient compression, whose quantization is the quantize kernel), and
+rwkv6-7b served (RWKV-6; the time mix's recurrence in the wkv6 kernel).
 Phases, each of which raises on failure (the script then exits non-zero):
 
 1. card     -- the card's name and power limit (nvidia-smi), torch and CUDA
-2. build    -- compile the three kernels from the sources in this checkout,
+2. build    -- compile the four kernels from the sources in this checkout,
                one nvcc each (sm_90a), all started together, and print the
                compiler's report
 3. sweep    -- each kernel against its plain PyTorch version on the card:
                flash over the sweep of tests/test_kernels.py x {f32, bf16}
                plus ragged lengths, GQA, d=16 and a window; moe_mlp over
                its sweep of tests/test_kernels.py and olmoe's widths at the
-               ragged capacities its prefill and decode give; quantize bit
-               for bit over the sweep of tests/test_kernels.py x block
-               {128, 256}, ragged lengths and edge rows
+               ragged capacities its prefill and decode give, then at
+               jamba-v0.1-52b's and mixtral-8x22b's widths (d_ff 14336 and
+               16384: the split schedule), timed at their prefill shapes;
+               quantize bit for bit over the sweep of tests/test_kernels.py
+               x block {128, 256}, ragged lengths and edge rows; wkv6 over
+               the sweep of tests/test_kernels.py, strong and slow decay,
+               ragged lengths and rwkv6-7b's heads, from a zero and from a
+               random state, y and the final state
 4. model    -- stablelm-1.6b: a 2048-token prefill through the kernel path,
                and through the plain attention with the same weights;
                logits compared
@@ -57,6 +63,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
                depth does not fit one card in f32 with AdamW): 2 steps with
                grad_compress, finite loss, a nonzero aux loss, a gradient
                on every expert and on the router
+14. rwkv     -- the train states freed; rwkv6-7b drawn at full width, its
+               zero- and one-initialised leaves perturbed from the seed;
+               phases 4 and 5 for it (the model phase puts the plain chunked
+               scan in the kernel's place), a prefill of 2047 tokens and one
+               decode step against a prefill of 2048 (the state handoff),
+               the kernel, its plain version and the plain chunked scan
+               timed at the prefill shape and the kernel alone at each
+               served length, then phase 7 for it
+15. rwkvtrain -- rwkv6-7b at full width cut to 2 of its 32 layers: 2 steps
+               with grad_compress, finite loss, a gradient on every leaf of
+               the time mix, no wkv6 launch
 
 It prints the kernel table as one JSON line, then the card's name and power
 limit, then the result line {"ok": true, "device": {...}} last.  Without a
@@ -75,7 +92,7 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-ARCH, MOE_ARCH = "stablelm-1.6b", "olmoe-1b-7b"
+ARCH, MOE_ARCH, RWKV_ARCH = "stablelm-1.6b", "olmoe-1b-7b", "rwkv6-7b"
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12       # H100 SXM f32 outside the tensor cores
@@ -107,6 +124,36 @@ MOE_SWEEP = [(2, 4, 128, 64, 256), (1, 2, 64, 128, 512), (2, 2, 128, 32, 128),
              (1, 64, 276, 2048, 1024), (1, 64, 320, 2048, 1024),
              (4, 64, 1, 2048, 1024)]
 MOE_PREFILL, MOE_DECODE = (1, 64, 320, 2048, 1024), (4, 64, 1, 2048, 1024)
+# d_ff too large for the one-pass schedule: jamba-v0.1-52b (E=16, top-2,
+# capacity factor 1.0) and mixtral-8x22b (E=8, top-2, capacity factor 1.25)
+# at the capacity of a 2048-token prefill, ceil(2048 * 2 * cf / E), and of
+# a decode step over 4 slots (G=4, C=1)
+MOE_LARGE_F = [(1, 16, 256, 4096, 14336), (4, 16, 1, 4096, 14336),
+               (1, 8, 640, 6144, 16384), (4, 8, 1, 6144, 16384)]
+MOE_LARGE_F_PREFILL = {"jamba-v0.1-52b": MOE_LARGE_F[0],
+                       "mixtral-8x22b": MOE_LARGE_F[2]}
+# wkv6: (b, s, h, n, chunk), tests/test_kernels.py's sweep, then ragged
+# lengths and rwkv6-7b's heads at the model phase's length
+WKV_SWEEP = [(2, 128, 2, 64, 64), (1, 256, 4, 32, 32), (2, 64, 1, 16, 16),
+             (1, 96, 2, 32, 32), (1, 1, 2, 64, 32), (1, 77, 2, 64, 32),
+             (1, 1036, 2, 64, 32), (1, 2048, 64, 64, 32)]
+# y: 5e-4 in f32 (tests/test_kernels.py); in bf16 the kernel and its plain
+# version compute in f32 from the same inputs and round y once, so they
+# may land one bf16 ulp apart, which is at most 2^-7 (7.8e-3) of |y|
+# (just above a power of two): 8e-3.  The final state is f32 in both:
+# 5e-4.
+WKV_TOL = {"float32": 5e-4, "bfloat16": 8e-3}
+RWKV_SHAPE = dict(b=1, s=2048, h=64, n=64)    # rwkv6-7b prefill time mix
+RWKV_CHUNK = 32                               # the model's chunk
+# rwkv6-7b's model phase: the kernel runs the recurrence token by token,
+# the plain path the chunked scan; they sum in other f32 orders, which
+# flips bf16 roundings of the time mix's output by one ulp, and 32
+# residual layers spread the flips.  5% of the largest logit is many such
+# ulps; a wrong state, decay or bonus moves logits by their own scale.
+# The handoff (a decode step after 2047 tokens against a prefill of 2048)
+# differs in the same way.
+RWKV_LOGIT_RTOL = 0.05
+RWKV_TRAIN_LAYERS, RWKV_TRAIN_STEPS = 2, 2
 # training: stablelm-1.6b at full width and depth on 4 x 2048 tokens
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_PROFILE_STEPS = 4, 2048, 10, 2
 MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 2, 2
@@ -225,6 +272,16 @@ def phase_serve(torch, np, cfg, model, params, counters, seed: int,
                     max_new_tokens=SERVE_NEW) for i, n in enumerate(lens)]
     srv = BatchServer(model, params, slots=SERVE_SLOTS,
                       seq_capacity=SERVE_CAP, device="cuda")
+    in_decode = {n: 0 for n in counters}
+    decode = srv._decode
+
+    def counted(*a, **kw):
+        before = {n: w.launches for n, w in counters.items()}
+        out = decode(*a, **kw)
+        for n, w in counters.items():
+            in_decode[n] += w.launches - before[n]
+        return out
+    srv._decode = counted
     torch.cuda.reset_peak_memory_stats()
     for wrapper in counters.values():
         wrapper.launches = 0
@@ -239,14 +296,20 @@ def phase_serve(torch, np, cfg, model, params, counters, seed: int,
                                           f"tokens")
         check(all(0 <= t < cfg.vocab_size for t in r.output),
               f"rid {r.rid}: token out of vocab")
-    moe = cfg.family == "moe"
-    want = {"flash_attention": cfg.n_layers * SERVE_REQUESTS,
-            "moe_mlp": (cfg.n_layers * (SERVE_REQUESTS + srv.decode_steps)
-                        if moe else 0),
-            "quantize": 0}
+    per_prefill = cfg.n_layers * SERVE_REQUESTS
+    moe, rwkv = cfg.family == "moe", cfg.family == "ssm"
+    moe_decode = cfg.n_layers * srv.decode_steps if moe else 0
+    want = {"flash_attention": 0 if rwkv else per_prefill,
+            "moe_mlp": per_prefill + moe_decode if moe else 0,
+            "quantize": 0, "wkv6": per_prefill if rwkv else 0}
+    want_decode = {n: 0 for n in counters}
+    want_decode["moe_mlp"] = moe_decode
     for n, got in launches.items():
         check(got == want[n], f"{n} launched {got} times in the {cfg.name} "
                               f"serve run, want {want[n]}")
+        check(in_decode[n] == want_decode[n],
+              f"{n} launched {in_decode[n]} times in the {cfg.name} decode "
+              f"steps, want {want_decode[n]}")
     # the server's first token is a batch-1 prefill: reproduce one
     r0 = min(done, key=lambda r: r.rid)
     lg, _ = model.prefill(srv.params, {
@@ -262,7 +325,8 @@ def phase_serve(torch, np, cfg, model, params, counters, seed: int,
           f"= {tokens / wall:.1f} tokens/s; prefill {pre.mean():.2f} ms/request "
           f"(min {pre.min():.2f}, max {pre.max():.2f}); decode "
           f"{dec.mean():.2f} ms/step over {srv.decode_steps} steps "
-          f"(median {np.median(dec):.2f}); launches {launches}; peak "
+          f"(median {np.median(dec):.2f}); launches {launches}, of which "
+          f"in decode steps {in_decode}; peak "
           f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
           f"GiB [{card}]")
     return launches, [int(n) for n in lens]
@@ -401,7 +465,7 @@ def phase_profile(torch, np, cfg, model, params, seed: int, card: str):
         for name, (tot, n) in top[:PROFILE_TOP]:
             print(f"  {kind} device {tot / 1e3 / steps:.4f} ms per step, "
                   f"{n} launches: {name[:110]}")
-        for key in ("flash", "moe_mlp"):
+        for key in ("flash", "moe_mlp", "wkv6"):
             tot = sum(t for name, (t, _) in by_name[kind].items()
                       if key in name)
             print(f"  {kind} {key} kernel {tot / 1e3 / steps:.4f} ms per "
@@ -524,6 +588,248 @@ def phase_moe_waves(torch, moe_ops, card: str) -> None:
         del args
 
 
+def phase_moe_large_f(torch, moe_ops, card: str) -> list:
+    """The split schedule against the plain version at jamba-v0.1-52b's
+    and mixtral-8x22b's widths, in f32 and bf16, then the kernel timed at
+    their prefill shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for g, e, c, d, f in MOE_LARGE_F:
+            args = _moe_inputs(torch, gen, g, e, c, d, f, dtype)
+            got = moe_ops.expert_mlp(*args)
+            want = moe_ops.expert_mlp_plain(*args)
+            torch.cuda.synchronize()
+            ok, err = _moe_close(torch, got, want, name)
+            case = (f"{name} G={g} E={e} C={c} D={d} F={f} (d_ff tile "
+                    f"{moe_ops.split_tile(f)})")
+            print(f"moe large-F sweep {case}: max_abs_err={err:.3e} "
+                  f"tol={MOE_TOL[name]} {'ok' if ok else 'FAIL'}")
+            check(ok, f"moe_mlp kernel disagrees with its plain version "
+                      f"({case})")
+            del args, got, want
+    times = []
+    for arch, shape in MOE_LARGE_F_PREFILL.items():
+        t = phase_moe_timing(torch, moe_ops, shape, f"{arch} prefill", card)
+        times.append({**t, "shape": _moe_shape(shape) + f" ({arch} prefill)"})
+    return times
+
+
+def _wkv_inputs(torch, gen, b, s, h, n, dtype, w0_lo=-6.0, w0_hi=1.0):
+    """r, k, v (b, s, h, n) in dtype; lw = -exp(w0 + 0.5 N(0, 1)) in f32
+    with w0 drawn per channel on [w0_lo, w0_hi], as the model feeds it; u
+    (h, n) f32; a random state0 (b, h, n, n) f32."""
+    r, k, v = (torch.randn(b, s, h, n, generator=gen, device="cuda")
+               .to(dtype) for _ in range(3))
+    w0 = torch.empty(h, n, device="cuda").uniform_(w0_lo, w0_hi,
+                                                   generator=gen)
+    lw = -torch.exp(w0 + 0.5 * torch.randn(b, s, h, n, generator=gen,
+                                           device="cuda"))
+    u = 0.5 * torch.randn(h, n, generator=gen, device="cuda")
+    state0 = torch.randn(b, h, n, n, generator=gen, device="cuda")
+    return r, k, v, lw, u, state0
+
+
+def _wkv_close(torch, got, want, dtype: str):
+    """(ok, max |err| of y, max |err| of the state, max |err| / (1 + |y|)):
+    y within WKV_TOL, the final state within 5e-4, both finite, each
+    relative to 1 + |value| (y grows with the state: one bf16 ulp of a
+    y near 200 is 1.0)."""
+    (y, st), (yw, stw) = got, want
+    ey = (y.float() - yw.float()).abs()
+    es = (st - stw).abs()
+    rel = ey / (1 + yw.float().abs())
+    ok = (bool((rel <= WKV_TOL[dtype]).all())
+          and bool((es <= 5e-4 * (1 + stw.abs())).all())
+          and bool(torch.isfinite(y).all()) and bool(torch.isfinite(st).all()))
+    return ok, float(ey.max()), float(es.max()), float(rel.max())
+
+
+def phase_wkv_sweep(torch, w_ops) -> None:
+    """The wkv6 kernel against its plain version (the sequential
+    recurrence), y and the final state, from a zero and from a random
+    state: WKV_SWEEP in f32 and bf16, then strong decay (w = 1e-3, within
+    1e-3 as tests/test_kernels.py) and slow decay (w0 = -6: decays of
+    ~0.9975 a step, so the carried state adds up over all 2048 tokens)."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    cases = [(c, dtype, (-6.0, 1.0)) for c in WKV_SWEEP
+             for dtype in (torch.float32, torch.bfloat16)]
+    cases += [((1, 2048, 4, 64, 32), torch.float32, (-6.0, -6.0))]
+    for (b, s, h, n, chunk), dtype, w0 in cases:
+        name = str(dtype).split(".")[-1]
+        r, k, v, lw, u, state0 = _wkv_inputs(torch, gen, b, s, h, n, dtype,
+                                             *w0)
+        for st0 in (None, state0):
+            got = w_ops.wkv6_state(r, k, v, lw, u, st0, chunk=chunk)
+            want = w_ops.wkv6_state_plain(r, k, v, lw, u, st0)
+            torch.cuda.synchronize()
+            ok, ey, es, rel = _wkv_close(torch, got, want, name)
+            case = (f"{name} b={b} s={s} h={h} n={n} chunk={chunk} w0 in "
+                    f"[{w0[0]}, {w0[1]}] state0="
+                    f"{'zeros' if st0 is None else 'random'}")
+            print(f"wkv6 sweep {case}: max_abs_err y={ey:.3e} (relative to "
+                  f"1+|y|: {rel:.3e}) state={es:.3e} tol y={WKV_TOL[name]} "
+                  f"state=5e-4 {'ok' if ok else 'FAIL'}")
+            check(ok, f"wkv6 kernel disagrees with its plain version "
+                      f"({case})")
+    r, k, v, _, _, _ = _wkv_inputs(torch, gen, 1, 128, 1, 32, torch.float32)
+    w = torch.full_like(r, 1e-3)
+    u = torch.zeros(1, 32, device="cuda")
+    got = w_ops.wkv6(r, k, v, w, u, chunk=64)
+    want, _ = w_ops.wkv6_state_plain(r, k, v, torch.log(w), u)
+    err = (got - want).abs()
+    ok = bool(torch.isfinite(got).all()) and bool(
+        (err <= 1e-3 * (1 + want.abs())).all())
+    print(f"wkv6 sweep strong decay w=1e-3 b=1 s=128 h=1 n=32: max_abs_err "
+          f"{float(err.max()):.3e} tol 1e-3 {'ok' if ok else 'FAIL'}")
+    check(ok, "wkv6 kernel under strong decay")
+
+
+def perturb_rwkv(torch, params, seed: int) -> None:
+    """In place, from the seed: the leaves the init leaves at zero or one,
+    which would hide a kernel or model that ignores them (u = 0 never runs
+    the bonus term; mu = 0 never runs the token-shift mixes; w0 = 0 makes
+    every decay ~e^-1 a step, so the state forgets within a few tokens):
+    u ~ 0.5 N(0, 1), w0 uniform on [-6, 1], the mixes uniform on [0, 1],
+    the group-norm scale 1 + 0.2 N(0, 1) and bias 0.2 N(0, 1)."""
+    tm, cm = params["layers"]["mixer"], params["layers"]["ffn"]
+    gen = torch.Generator(device=tm["u"].device).manual_seed(seed + 100)
+    with torch.no_grad():
+        tm["u"].normal_(generator=gen).mul_(0.5)
+        tm["w0"].uniform_(-6.0, 1.0, generator=gen)
+        for t in (tm["mu"], tm["mu_x"], cm["mu_k"], cm["mu_r"]):
+            t.uniform_(0.0, 1.0, generator=gen)
+        tm["ln_x_scale"].normal_(generator=gen).mul_(0.2).add_(1.0)
+        tm["ln_x_bias"].normal_(generator=gen).mul_(0.2)
+
+
+def phase_rwkv_handoff(torch, np, cfg, model, params, seed: int, w_ops,
+                       card: str) -> None:
+    """The decode state handoff at full width: a prefill of 2047 tokens
+    (the kernel, from a zero state, ragged s) and one decode step (the
+    one-token recurrence from the prefill's state, no kernel) against a
+    prefill of all 2048 tokens."""
+    prompt = np.random.default_rng(seed + 2).integers(0, cfg.vocab_size, 2048)
+    tokens = torch.as_tensor(prompt, device="cuda")[None]
+    full, _ = model.prefill(params, {"tokens": tokens})
+    _, cache = model.prefill(params, {"tokens": tokens[:, :-1]})
+    check(cache["wkv"].dtype == torch.float32, "the WKV state is not f32")
+    n0 = w_ops.wkv6.launches
+    step, _ = model.decode(params, {"tokens": tokens[:, -1:]}, cache, 2047)
+    torch.cuda.synchronize()
+    check(w_ops.wkv6.launches == n0, "a decode step launched wkv6")
+    lf, ls = full[0, -1].float(), step[0, -1].float()
+    check(bool(torch.isfinite(ls).all()), "non-finite decode logits")
+    err, scale = float((lf - ls).abs().max()), float(lf.abs().max())
+    top2 = torch.topk(lf, 2).values
+    print(f"handoff {cfg.name}: prefill 2047 + one decode step against a "
+          f"prefill of 2048: max|dlogit|={err:.4e} vs max|logit|="
+          f"{scale:.4f} (tol {RWKV_LOGIT_RTOL} x max|logit|); argmax prefill "
+          f"{int(lf.argmax())} decode {int(ls.argmax())} (top-2 gap "
+          f"{float(top2[0] - top2[1]):.4f}) [{card}]")
+    check(err <= RWKV_LOGIT_RTOL * scale, "decode after prefill disagrees")
+    check(int(lf.argmax()) == int(ls.argmax()), "handoff argmax differs")
+
+
+def _wkv_bound(b: int, s: int, h: int, n: int, elem: int):
+    """(bound ms, what bounds it, bytes, operations): r, k, v and y in
+    ``elem`` bytes and lw in f32, each read or written once, the final
+    f32 state written once; 4 n^2 f32 operations per token and head (y:
+    n^2 multiply-adds; the state: n^2 multiplies and n^2 multiply-adds) at
+    the rate outside the tensor cores."""
+    nbytes = b * s * h * n * (4 * elem + 4) + 4 * b * h * n * n
+    ops = 4 * n * n * b * s * h
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32_FLOPS * 1e3
+    bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
+    return bound_ms, bound_by, nbytes, ops
+
+
+def phase_wkv_timing(torch, w_ops, rw, card: str) -> dict:
+    """The kernel, its plain version (the sequential recurrence) and the
+    model's plain chunked scan at rwkv6-7b's prefill shape, bf16, the
+    model's chunk.  No single PyTorch call computes WKV6 (library:
+    none)."""
+    b, s, h, n = (RWKV_SHAPE[k] for k in "bshn")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    r, k, v, lw, u, _ = _wkv_inputs(torch, gen, b, s, h, n, torch.bfloat16)
+    got = w_ops.wkv6_state(r, k, v, lw, u, chunk=RWKV_CHUNK)
+    want = w_ops.wkv6_state_plain(r, k, v, lw, u)
+    ok, err, err_st, rel = _wkv_close(torch, got, want, "bfloat16")
+    check(ok, f"wkv6 main-shape kernel error {err} (state {err_st})")
+    ms = cuda_ms(lambda: w_ops.wkv6_state(r, k, v, lw, u, chunk=RWKV_CHUNK))
+    plain_ms = cuda_ms(lambda: w_ops.wkv6_state_plain(r, k, v, lw, u),
+                       iters=3, warmup=1)
+    chunked_ms = cuda_ms(lambda: rw.wkv6_chunked_plain(r, k, v, lw, u, None,
+                                                       RWKV_CHUNK),
+                         iters=5, warmup=1)
+    bound_ms, bound_by, nbytes, ops = _wkv_bound(b, s, h, n, r.element_size())
+    print(f"wkv6 timing b={b} s={s} h={h} n={n} bf16 chunk={RWKV_CHUNK}: "
+          f"kernel {ms:.4f} ms, plain (sequential) {plain_ms:.4f} ms, plain "
+          f"chunked scan {chunked_ms:.4f} ms, library none, bound "
+          f"{bound_ms:.4f} ms ({bound_by}: {ops / 1e9:.3f} G operations, "
+          f"{nbytes / 1e6:.2f} MB); kernel at {ops / ms / 1e9:.2f} TFLOP/s, "
+          f"{nbytes / ms / 1e9:.3f} TB/s, {ms / bound_ms:.2f}x the bound; "
+          f"max_abs_err y {err:.3e} (max |y| "
+          f"{float(want[0].float().abs().max()):.1f}, relative to 1+|y| "
+          f"{rel:.3e}), state {err_st:.3e} [{card}]")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None,
+                plain_chunked_ms=chunked_ms,
+                shape=f"b={b} s={s} h={h} n={n} bf16 chunk={RWKV_CHUNK}")
+
+
+def phase_wkv_lengths(torch, w_ops, lens, n_layers: int, card: str) -> None:
+    """The kernel alone at rwkv6-7b's heads and each served prompt length:
+    what its launches (one per layer per request) cost in the serve run."""
+    h, n = RWKV_SHAPE["h"], RWKV_SHAPE["n"]
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    per_req = []
+    for s in sorted(lens):
+        r, k, v, lw, u, _ = _wkv_inputs(torch, gen, 1, s, h, n,
+                                        torch.bfloat16)
+        per_req.append(cuda_ms(lambda: w_ops.wkv6_state(
+            r, k, v, lw, u, chunk=RWKV_CHUNK)))
+        bound, _, _, _ = _wkv_bound(1, s, h, n, 2)
+        print(f"wkv6 lengths s={s}: kernel {per_req[-1]:.4f} ms per launch "
+              f"(bound {bound:.4f}), {per_req[-1] * n_layers:.3f} ms per "
+              f"prefill")
+    print(f"wkv6 lengths: kernel {sum(per_req) * n_layers:.3f} ms over the "
+          f"serve run's {len(per_req)} prefills ({n_layers} launches each) "
+          f"[{card}]")
+
+
+def phase_rwkv_train(torch, counters, seed: int, card: str) -> dict:
+    """rwkv6-7b at full width, depth cut to RWKV_TRAIN_LAYERS: the train
+    mode's plain chunked scan under autograd, with the perturbed leaves."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.train import batch_to
+    from repro_torch.train.step import loss_and_grads
+    cfg = dataclasses.replace(get_config(RWKV_ARCH),
+                              n_layers=RWKV_TRAIN_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    model, opts, state, step, pipe = _train_setup(torch, cfg, seed)
+    perturb_rwkv(torch, state["params"], seed)
+    batches = [batch_to(pipe.batch(i), "cuda")
+               for i in range(RWKV_TRAIN_STEPS + 1)]
+    state, hist, launches, n_leaves = _run_steps(
+        torch, step, state, batches[:RWKV_TRAIN_STEPS], counters)
+    for i, m in enumerate(hist):
+        print(f"rwkvtrain step {i + 1}: loss {m['loss']:.4f} grad_norm "
+              f"{m['grad_norm']:.4f} {m['s'] * 1e3:.1f} ms")
+    grads, _, _ = loss_and_grads(model, opts, state["params"], batches[-1])
+    for name, g in grads["layers"]["mixer"].items():
+        per_layer = g.abs().flatten(1).sum(-1)
+        check(bool((per_layer > 0).all()),
+              f"time mix {name}: a layer got no gradient")
+    print(f"rwkvtrain {cfg.name} at {RWKV_TRAIN_LAYERS} of 32 layers, b="
+          f"{TRAIN_BATCH} s={TRAIN_SEQ}: every time-mix leaf of every layer "
+          f"(u and w0 included) has a gradient; {n_leaves} leaves; launches "
+          f"{launches}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    return launches
+
+
 def _same_bits(torch, a, b) -> bool:
     """Equal bit for bit (f32 compared as int32, so a NaN equals itself)."""
     if a.dtype == torch.float32:
@@ -597,7 +903,7 @@ def _run_steps(torch, step, state, batches, counters):
         check(all(math.isfinite(m[k]) for k in ("loss", "grad_norm")),
               f"step {i}: loss {m['loss']}, grad_norm {m['grad_norm']}")
     n_leaves = len(list(leaves(state["params"])))
-    want = {"flash_attention": 0, "moe_mlp": 0,
+    want = {"flash_attention": 0, "moe_mlp": 0, "wkv6": 0,
             "quantize": n_leaves * len(batches)}
     for n, got in launches.items():
         check(got == want[n], f"{n} launched {got} times in the train "
@@ -844,8 +1150,11 @@ def main() -> int:
     from repro_torch.kernels.quantize import kernel as q_kernel
     from repro_torch.kernels.quantize import ops as q_ops
     from repro_torch.kernels.quantize.ref import quantize_plain
+    from repro_torch.kernels.rwkv6_wkv import kernel as w_kernel
+    from repro_torch.kernels.rwkv6_wkv import ops as w_ops
     from repro_torch.models import build_model
     from repro_torch.models import layers, moe
+    from repro_torch.models import rwkv as rw
 
     # 1. card
     card = card_line()
@@ -853,7 +1162,7 @@ def main() -> int:
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
     # 2. build: one nvcc per source, all started together
-    mods = (kernel, moe_kernel, q_kernel)
+    mods = (kernel, moe_kernel, q_kernel, w_kernel)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(mods)) as pool:
         paths = list(pool.map(lambda m: build.build(m.SOURCE), mods))
@@ -868,9 +1177,12 @@ def main() -> int:
     # 3. each kernel against its plain version
     phase_sweep(torch, ops)
     phase_moe_sweep(torch, moe_ops)
+    t_large_f = phase_moe_large_f(torch, moe_ops, card)
     phase_quantize_sweep(torch, q_ops, quantize_plain)
+    phase_wkv_sweep(torch, w_ops)
     counters = {"flash_attention": ops.flash_attention,
-                "moe_mlp": moe_ops.expert_mlp, "quantize": q_ops.quantize}
+                "moe_mlp": moe_ops.expert_mlp, "quantize": q_ops.quantize,
+                "wkv6": w_ops.wkv6}
 
     # 4. full width, kernel path against plain path
     cfg = get_config(ARCH)
@@ -941,10 +1253,48 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_train_launches = phase_moe_train(torch, counters, args.seed, card)
 
+    # 14. rwkv6-7b served, everything before freed
+    gc.collect()
+    torch.cuda.empty_cache()
+    rcfg = get_config(RWKV_ARCH)
+    rmodel = build_model(rcfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rparams = rmodel.init(args.seed, "cuda")
+    perturb_rwkv(torch, rparams, args.seed)
+    rparams = rmodel.load(rparams, "cuda")
+    torch.cuda.synchronize()
+    print(f"model: {RWKV_ARCH} params drawn, perturbed and cast to bf16 in "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{sum(t.numel() for t in _leaves(rparams)) / 1e9:.3f} B params, "
+          f"peak device memory of the init "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    def chunked(r, k, v, lw, u, state0=None, chunk=RWKV_CHUNK):
+        return rw.wkv6_chunked_plain(r, k, v, lw, u, state0, chunk)
+    phase_model(torch, np, rcfg, rmodel, rparams, args.seed, rw, "wkv6_state",
+                chunked, RWKV_LOGIT_RTOL)
+    phase_rwkv_handoff(torch, np, rcfg, rmodel, rparams, args.seed, w_ops,
+                       card)
+    rwkv_launches, rlens = phase_serve(torch, np, rcfg, rmodel, rparams,
+                                       counters, args.seed, card)
+    tw = phase_wkv_timing(torch, w_ops, rw, card)
+    phase_wkv_lengths(torch, w_ops, rlens, rcfg.n_layers, card)
+    phase_profile(torch, np, rcfg, rmodel, rparams, args.seed, card)
+
+    # 15. rwkv6-7b's train mode, its serving parameters freed first
+    del rparams, rmodel
+    gc.collect()
+    torch.cuda.empty_cache()
+    rwkv_train_launches = phase_rwkv_train(torch, counters, args.seed, card)
+
     by_path = {ARCH: dense_launches, MOE_ARCH: moe_launches,
                f"{ARCH} train": train_launches,
                f"{MOE_ARCH} train ({MOE_TRAIN_LAYERS} layers)":
-                   moe_train_launches}
+                   moe_train_launches,
+               RWKV_ARCH: rwkv_launches,
+               f"{RWKV_ARCH} train ({RWKV_TRAIN_LAYERS} layers)":
+                   rwkv_train_launches}
     rows = [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -959,13 +1309,20 @@ def main() -> int:
          "launches": moe_launches["moe_mlp"],
          "launches_by_path": {a: v["moe_mlp"] for a, v in by_path.items()},
          **tm, "shape": _moe_shape(MOE_PREFILL) + " (prefill)",
-         "decode": {**td, "shape": _moe_shape(MOE_DECODE)}},
+         "decode": {**td, "shape": _moe_shape(MOE_DECODE)},
+         "large_d_ff": t_large_f},
         {"name": "quantize", "route": "cuda",
          "source": "src/repro_torch/kernels/quantize/csrc/quantize.cu",
          "replaces": "src/repro/kernels/quantize/kernel.py:19",
          "launches": train_launches["quantize"],
          "launches_by_path": {a: v["quantize"] for a, v in by_path.items()},
          **tq},
+        {"name": "rwkv6_wkv", "route": "cuda",
+         "source": "src/repro_torch/kernels/rwkv6_wkv/csrc/wkv6.cu",
+         "replaces": "src/repro/kernels/rwkv6_wkv/kernel.py:37",
+         "launches": rwkv_launches["wkv6"],
+         "launches_by_path": {a: v["wkv6"] for a, v in by_path.items()},
+         **tw},
     ]
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -17,23 +17,23 @@ from repro_torch.configs.minicpm_2b import CONFIG as _minicpm
 from repro_torch.configs.mixtral_8x22b import CONFIG as _mixtral
 from repro_torch.configs.nemotron_4_15b import CONFIG as _nemotron
 from repro_torch.configs.olmoe_1b_7b import CONFIG as _olmoe
+from repro_torch.configs.rwkv6_7b import CONFIG as _rwkv
 from repro_torch.configs.stablelm_1_6b import CONFIG as _stablelm
 
 REGISTRY: Dict[str, ArchConfig] = {
     c.name: c for c in (_stablelm, _deepseek, _minicpm, _nemotron, _olmoe,
-                        _mixtral)}
+                        _mixtral, _rwkv)}
 
 # what a later slice brings, by ROADMAP.md Queue 1 item
 ROADMAP: Dict[str, str] = {
-    "ssm": "ROADMAP.md Queue 1 item 4 (RWKV slice with rwkv6_wkv)",
     "hybrid": "ROADMAP.md Queue 1 item 5 (Mamba and hybrid slice)",
     "vlm": "ROADMAP.md Queue 1 item 6 (VLM and audio slice)",
     "audio": "ROADMAP.md Queue 1 item 6 (VLM and audio slice)",
 }
 # archs of the JAX registry the port does not run yet
 PENDING: Dict[str, str] = {
-    "rwkv6-7b": ROADMAP["ssm"], "jamba-v0.1-52b": ROADMAP["hybrid"],
-    "qwen2-vl-7b": ROADMAP["vlm"], "whisper-small": ROADMAP["audio"],
+    "jamba-v0.1-52b": ROADMAP["hybrid"], "qwen2-vl-7b": ROADMAP["vlm"],
+    "whisper-small": ROADMAP["audio"],
 }
 
 

@@ -31,9 +31,20 @@
 //               each accumulated in registers over all of d_ff and
 //               stored once.
 //    h never reaches device memory, as on the TPU, and nothing is
-//    recomputed.  The price is that F is bounded by shared memory
-//    (F <= 1152 at BC = 32, 2944 at BC = 16): olmoe-1b-7b's 1024 fits;
-//    the wrapper raises on a larger F.
+//    recomputed.  All of d_ff fits shared memory up to F = 1152 at
+//    BC = 32 and 2944 at BC = 16: olmoe-1b-7b's 1024 takes this one-pass
+//    schedule.
+//  * Large d_ff (mixtral-8x22b's 16384, jamba-v0.1-52b's 14336): the
+//    split schedule.  The wrapper cuts d_ff into tiles of FT columns (at
+//    most 1024) and the block runs phases 1 and 2 once per tile, h of one
+//    tile in shared memory in f32.  Each tile's h wo goes into an f32
+//    (G E, C, D) workspace that the wrapper allocates: the first tile
+//    writes it, later tiles add to it (each thread reads back only what
+//    it wrote), and the last tile adds its part and stores the output in
+//    x's dtype.  So h and the partial sums stay f32 throughout, and the
+//    output is rounded once, as in the one-pass schedule.  The workspace
+//    costs 2 (F / FT - 1) passes over G E C D f32 values, which the
+//    one-pass schedule does not make.
 //  * Weight reads.  Each block streams its expert's weights once, so a
 //    launch reads them G * ceil(C / BC) times.  The grid is laid out so
 //    that the blocks of one expert are adjacent in launch order and run
@@ -78,7 +89,9 @@ struct Params {
   const void* wg;
   const void* wo;
   void* out;
+  float* ws;      // split schedule: f32 (G E, C, D) partial sums
   int g, e, c, d, f;
+  int ft;         // d_ff columns per tile: f (one pass) or a divisor of f
 };
 
 __device__ __forceinline__ float silu(float v) {
@@ -191,18 +204,38 @@ struct Bf16Tiling {
   static_assert(NJ % 2 == 0 && BK2 <= 2 * BK, "tiling");
 };
 
+// Shared memory of a block that holds h for ft columns of d_ff.
 template <int BC, int STAGES>
-constexpr size_t smem_bf16(int f) {
-  return (size_t)BC * (f + HP) * sizeof(float) +
+constexpr size_t smem_bf16(int ft) {
+  return (size_t)BC * (ft + HP) * sizeof(float) +
          (size_t)STAGES * Bf16Tiling<BC>::STAGE * sizeof(bf16);
 }
 
-template <int BC, int STAGES, int MIN_BLOCKS>
+// The epilogue of a split schedule's output tile: the f32 sum of the
+// tiles so far, stored to the workspace, or to out after the last tile.
+__device__ __forceinline__ void split_store(float* ws, bf16* out, size_t i,
+                                            float a, float b, bool first,
+                                            bool last) {
+  if (!first) {
+    const float2 w = *reinterpret_cast<const float2*>(ws + i);
+    a += w.x;
+    b += w.y;
+  }
+  if (last)
+    *reinterpret_cast<__nv_bfloat162*>(out + i) = __floats2bfloat162_rn(a, b);
+  else
+    *reinterpret_cast<float2*>(ws + i) = make_float2(a, b);
+}
+
+// SPLIT: d_ff is walked in tiles of p.ft columns, each with its own
+// phases 1 and 2 (see the head of this file); otherwise p.ft == p.f and
+// the block makes one pass.
+template <int BC, int STAGES, int MIN_BLOCKS, bool SPLIT>
 __global__ void __launch_bounds__(NT, MIN_BLOCKS)
 moe_mlp_bf16_kernel(const Params p) {
   using T = Bf16Tiling<BC>;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int D = p.d, F = p.f, HS = F + HP;
+  const int D = p.d, F = p.f, FT = SPLIT ? p.ft : p.f, HS = FT + HP;
   float* hs = reinterpret_cast<float*>(smem);
   bf16* ring = reinterpret_cast<bf16*>(hs + (size_t)BC * HS);
 
@@ -220,17 +253,21 @@ moe_mlp_bf16_kernel(const Params p) {
   const bf16* wg = static_cast<const bf16*>(p.wg) + tl.ex * wsz;
   const bf16* wo = static_cast<const bf16*>(p.wo) + tl.ex * wsz;
   bf16* out = static_cast<bf16*>(p.out) + ((size_t)tl.ge * p.c + tl.c0) * D;
+  float* wsum = SPLIT ? p.ws + ((size_t)tl.ge * p.c + tl.c0) * D : nullptr;
 
-  // steps: phase 1 is (d_ff tile, k over D); phase 2 (D tile, k over d_ff)
-  const int nk1 = D / BK, n1 = (F / BN) * nk1;
-  const int nk2 = F / BK2, steps = n1 + ((D + BN - 1) / BN) * nk2;
+  // steps of one d_ff tile: phase 1 is (128 columns of h, k over D);
+  // phase 2 (D tile, k over the tile's d_ff); SPLIT repeats them per tile
+  const int nk1 = D / BK, n1 = (FT / BN) * nk1;
+  const int nk2 = FT / BK2, per = n1 + ((D + BN - 1) / BN) * nk2;
+  const int ntiles = F / FT, steps = ntiles * per;
 
   auto load = [&](int s) {
     if (s >= steps) return;
     bf16* xs = ring + (s % STAGES) * T::STAGE;
     bf16* ws = xs + T::XTILE;
-    if (s < n1) {
-      const int f0 = (s / nk1) * BN, k0 = (s % nk1) * BK;
+    const int fb = SPLIT ? (s / per) * FT : 0, sl = SPLIT ? s % per : s;
+    if (sl < n1) {
+      const int f0 = fb + (sl / nk1) * BN, k0 = (sl % nk1) * BK;
       for (int i = t; i < BC * (BK / 8); i += NT) {
         const int r = i / (BK / 8), v = (i % (BK / 8)) * 8;
         const bool ok = r < tl.rows;
@@ -243,7 +280,8 @@ moe_mlp_bf16_kernel(const Params p) {
         cp_async16(ws + (BK + r) * WS + v, wg + off, true);
       }
     } else {
-      const int s2 = s - n1, d0 = (s2 / nk2) * BN, k0 = (s2 % nk2) * BK2;
+      const int s2 = sl - n1, d0 = (s2 / nk2) * BN;
+      const int k0 = fb + (s2 % nk2) * BK2;
       for (int i = t; i < BK2 * (BN / 8); i += NT) {
         const int r = i / (BN / 8), v = (i % (BN / 8)) * 8;
         const bool ok = d0 + v < D;
@@ -274,8 +312,9 @@ moe_mlp_bf16_kernel(const Params p) {
     const bf16* xs = ring + (s % STAGES) * T::STAGE;
     const bf16* ws = xs + T::XTILE;
     const int lrow = lane & 15, lcol = (lane >> 4) * 8;
+    const int ti = SPLIT ? s / per : 0, sl = SPLIT ? s % per : s;
 
-    if (s < n1) {
+    if (sl < n1) {
       // ---- phase 1: x wi and x wg for one (d_ff tile, k) step ----------
 #pragma unroll
       for (int kk = 0; kk < BK; kk += 16) {
@@ -293,8 +332,8 @@ moe_mlp_bf16_kernel(const Params p) {
           mma_bf16(acc[1][j + 1], a, bg[2], bg[3]);
         }
       }
-      if (s % nk1 == nk1 - 1) {               // the d_ff tile is done
-        const int f0 = (s / nk1) * BN;
+      if (sl % nk1 == nk1 - 1) {              // 128 columns of h are done
+        const int f0 = (sl / nk1) * BN;
 #pragma unroll
         for (int j = 0; j < T::NJ; ++j) {
           const int n = f0 + ncol + 8 * j + 2 * tig;
@@ -310,7 +349,7 @@ moe_mlp_bf16_kernel(const Params p) {
       }
     } else {
       // ---- phase 2: h wo for one (D tile, k) step, h split exactly ------
-      const int s2 = s - n1, k0 = (s2 % nk2) * BK2;
+      const int s2 = sl - n1, k0 = (s2 % nk2) * BK2;
 #pragma unroll
       for (int kk = 0; kk < BK2; kk += 16) {
         const float* hp = hs + r0 * HS + k0 + kk + 2 * tig;
@@ -340,13 +379,23 @@ moe_mlp_bf16_kernel(const Params p) {
         for (int j = 0; j < T::NJ; ++j) {
           const int n = d0 + ncol + 8 * j + 2 * tig;
           if (n < D) {
-            if (r0 < tl.rows)
-              *reinterpret_cast<__nv_bfloat162*>(out + (size_t)r0 * D + n) =
-                  __floats2bfloat162_rn(acc[0][j][0], acc[0][j][1]);
-            if (r0 + 8 < tl.rows)
-              *reinterpret_cast<__nv_bfloat162*>(out + (size_t)(r0 + 8) * D +
-                                                 n) =
-                  __floats2bfloat162_rn(acc[0][j][2], acc[0][j][3]);
+            if constexpr (SPLIT) {
+              const bool first = ti == 0, last = ti == ntiles - 1;
+              if (r0 < tl.rows)
+                split_store(wsum, out, (size_t)r0 * D + n, acc[0][j][0],
+                            acc[0][j][1], first, last);
+              if (r0 + 8 < tl.rows)
+                split_store(wsum, out, (size_t)(r0 + 8) * D + n, acc[0][j][2],
+                            acc[0][j][3], first, last);
+            } else {
+              if (r0 < tl.rows)
+                *reinterpret_cast<__nv_bfloat162*>(out + (size_t)r0 * D + n) =
+                    __floats2bfloat162_rn(acc[0][j][0], acc[0][j][1]);
+              if (r0 + 8 < tl.rows)
+                *reinterpret_cast<__nv_bfloat162*>(out +
+                                                   (size_t)(r0 + 8) * D + n) =
+                    __floats2bfloat162_rn(acc[0][j][2], acc[0][j][3]);
+            }
           }
 #pragma unroll
           for (int q = 0; q < 4; ++q) acc[0][j][q] = 0.f;
@@ -364,16 +413,18 @@ moe_mlp_bf16_kernel(const Params p) {
 constexpr int BC32 = 16;        // rows per block
 constexpr int HPAD32 = 4;       // f32 row padding of h
 
-constexpr size_t smem_f32(int f) {
-  return (size_t)BC32 * (f + HPAD32) * 4 +
+constexpr size_t smem_f32(int ft) {
+  return (size_t)BC32 * (ft + HPAD32) * 4 +
          ((size_t)BC32 * BK + 2 * (size_t)BK * BN) * 4;
 }
 
 // Thread (ty, tx) of 2 x 128: column tx of each 128-column tile, rows
-// 8 ty .. 8 ty + 7.  Same two phases as the bf16 kernel, with plain loads.
+// 8 ty .. 8 ty + 7.  Same two phases as the bf16 kernel, with plain loads,
+// once per d_ff tile of p.ft columns (SPLIT) or once for all of d_ff.
+template <bool SPLIT>
 __global__ void __launch_bounds__(NT) moe_mlp_f32_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int D = p.d, F = p.f, HS = F + HPAD32;
+  const int D = p.d, F = p.f, FT = SPLIT ? p.ft : p.f, HS = FT + HPAD32;
   float* hs = reinterpret_cast<float*>(smem);
   float* xs = hs + (size_t)BC32 * HS;
   float* ws1 = xs + BC32 * BK;
@@ -388,75 +439,91 @@ __global__ void __launch_bounds__(NT) moe_mlp_f32_kernel(const Params p) {
   const float* wg = static_cast<const float*>(p.wg) + tl.ex * wsz;
   const float* wo = static_cast<const float*>(p.wo) + tl.ex * wsz;
   float* out = static_cast<float*>(p.out) + ((size_t)tl.ge * p.c + tl.c0) * D;
+  float* wsum = SPLIT ? p.ws + ((size_t)tl.ge * p.c + tl.c0) * D : nullptr;
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
 
-  for (int f0 = 0; f0 < F; f0 += BN) {
-    float ai[8], ag[8];
+  for (int fb = 0; fb < F; fb += FT) {
+    for (int f0 = fb; f0 < fb + FT; f0 += BN) {
+      float ai[8], ag[8];
 #pragma unroll
-    for (int r = 0; r < 8; ++r) ai[r] = ag[r] = 0.f;
-    for (int k0 = 0; k0 < D; k0 += BK) {
-      for (int i = t; i < BC32 * (BK / 4); i += NT) {
-        const int r = i / (BK / 4), s = (i % (BK / 4)) * 4;
-        *reinterpret_cast<float4*>(xs + r * BK + s) =
-            r < tl.rows ? *reinterpret_cast<const float4*>(
-                              x + (size_t)r * D + k0 + s)
-                        : zero;
-      }
-      for (int i = t; i < BK * (BN / 4); i += NT) {
-        const int r = i / (BN / 4), s = (i % (BN / 4)) * 4;
-        const size_t off = (size_t)(k0 + r) * F + f0 + s;
-        *reinterpret_cast<float4*>(ws1 + r * BN + s) =
-            *reinterpret_cast<const float4*>(wi + off);
-        *reinterpret_cast<float4*>(ws2 + r * BN + s) =
-            *reinterpret_cast<const float4*>(wg + off);
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int k = 0; k < BK; ++k) {
-        const float vi = ws1[k * BN + tx], vg = ws2[k * BN + tx];
-#pragma unroll
-        for (int r = 0; r < 8; ++r) {
-          const float xv = xs[(8 * ty + r) * BK + k];
-          ai[r] = fmaf(xv, vi, ai[r]);
-          ag[r] = fmaf(xv, vg, ag[r]);
+      for (int r = 0; r < 8; ++r) ai[r] = ag[r] = 0.f;
+      for (int k0 = 0; k0 < D; k0 += BK) {
+        for (int i = t; i < BC32 * (BK / 4); i += NT) {
+          const int r = i / (BK / 4), s = (i % (BK / 4)) * 4;
+          *reinterpret_cast<float4*>(xs + r * BK + s) =
+              r < tl.rows ? *reinterpret_cast<const float4*>(
+                                x + (size_t)r * D + k0 + s)
+                          : zero;
         }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int r = 0; r < 8; ++r)
-      hs[(8 * ty + r) * HS + f0 + tx] = silu(ai[r]) * ag[r];
-  }
-  __syncthreads();
-
-  for (int d0 = 0; d0 < D; d0 += BN) {
-    float acc[8];
-#pragma unroll
-    for (int r = 0; r < 8; ++r) acc[r] = 0.f;
-    for (int k0 = 0; k0 < F; k0 += BK) {
-      for (int i = t; i < BK * (BN / 4); i += NT) {
-        const int r = i / (BN / 4), s = (i % (BN / 4)) * 4;
-        *reinterpret_cast<float4*>(ws1 + r * BN + s) =
-            d0 + s < D ? *reinterpret_cast<const float4*>(
-                             wo + (size_t)(k0 + r) * D + d0 + s)
-                       : zero;
-      }
-      __syncthreads();
+        for (int i = t; i < BK * (BN / 4); i += NT) {
+          const int r = i / (BN / 4), s = (i % (BN / 4)) * 4;
+          const size_t off = (size_t)(k0 + r) * F + f0 + s;
+          *reinterpret_cast<float4*>(ws1 + r * BN + s) =
+              *reinterpret_cast<const float4*>(wi + off);
+          *reinterpret_cast<float4*>(ws2 + r * BN + s) =
+              *reinterpret_cast<const float4*>(wg + off);
+        }
+        __syncthreads();
 #pragma unroll 8
-      for (int k = 0; k < BK; ++k) {
-        const float w = ws1[k * BN + tx];
+        for (int k = 0; k < BK; ++k) {
+          const float vi = ws1[k * BN + tx], vg = ws2[k * BN + tx];
 #pragma unroll
-        for (int r = 0; r < 8; ++r)
-          acc[r] = fmaf(hs[(8 * ty + r) * HS + k0 + k], w, acc[r]);
+          for (int r = 0; r < 8; ++r) {
+            const float xv = xs[(8 * ty + r) * BK + k];
+            ai[r] = fmaf(xv, vi, ai[r]);
+            ag[r] = fmaf(xv, vg, ag[r]);
+          }
+        }
+        __syncthreads();
       }
-      __syncthreads();
-    }
-    const int n = d0 + tx;
-    if (n < D)
 #pragma unroll
       for (int r = 0; r < 8; ++r)
-        if (8 * ty + r < tl.rows) out[(size_t)(8 * ty + r) * D + n] = acc[r];
-  }
+        hs[(8 * ty + r) * HS + f0 - fb + tx] = silu(ai[r]) * ag[r];
+    }
+    __syncthreads();
+
+    for (int d0 = 0; d0 < D; d0 += BN) {
+      float acc[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) acc[r] = 0.f;
+      for (int k0 = 0; k0 < FT; k0 += BK) {
+        for (int i = t; i < BK * (BN / 4); i += NT) {
+          const int r = i / (BN / 4), s = (i % (BN / 4)) * 4;
+          *reinterpret_cast<float4*>(ws1 + r * BN + s) =
+              d0 + s < D ? *reinterpret_cast<const float4*>(
+                               wo + (size_t)(fb + k0 + r) * D + d0 + s)
+                         : zero;
+        }
+        __syncthreads();
+#pragma unroll 8
+        for (int k = 0; k < BK; ++k) {
+          const float w = ws1[k * BN + tx];
+#pragma unroll
+          for (int r = 0; r < 8; ++r)
+            acc[r] = fmaf(hs[(8 * ty + r) * HS + k0 + k], w, acc[r]);
+        }
+        __syncthreads();
+      }
+      const int n = d0 + tx;
+      if (n < D)
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+          if (8 * ty + r < tl.rows) {
+            const size_t i = (size_t)(8 * ty + r) * D + n;
+            if constexpr (SPLIT) {
+              // the f32 sum of the tiles so far: to the workspace, or to
+              // out after the last tile
+              const float v = fb == 0 ? acc[r] : acc[r] + wsum[i];
+              if (fb + FT == F)
+                out[i] = v;
+              else
+                wsum[i] = v;
+            } else {
+              out[i] = acc[r];
+            }
+          }
+    }
+  }  // d_ff tiles
 }
 
 template <typename K>
@@ -473,44 +540,57 @@ cudaError_t launch(K kernel, const Params& p, int bc, size_t smem,
 
 }  // namespace
 
-// The shared memory one launch needs (bytes), so that the wrapper can
-// refuse a d_ff that does not fit before it launches.  dtype: 0 =
-// float32, 1 = bfloat16.
-extern "C" long long moe_mlp_smem_bytes(int dtype, int c, int f) {
-  if (dtype == 0) return static_cast<long long>(smem_f32(f));
-  return static_cast<long long>(c <= 16 ? smem_bf16<16, 2>(f)
-                                        : smem_bf16<32, 4>(f));
+// The shared memory a block needs (bytes) when it holds h for ft columns
+// of d_ff, so that the wrapper can choose the schedule: one pass when
+// ft = f fits, else the split schedule.  dtype: 0 = float32, 1 = bfloat16.
+extern "C" long long moe_mlp_smem_bytes(int dtype, int c, int ft) {
+  if (dtype == 0) return static_cast<long long>(smem_f32(ft));
+  return static_cast<long long>(c <= 16 ? smem_bf16<16, 2>(ft)
+                                        : smem_bf16<32, 4>(ft));
 }
 
 // x (g e, c, d), wi/wg (e, d, f), wo (e, f, d), out (g e, c, d); all
 // contiguous, one dtype (0 = float32, 1 = bfloat16).  Needs d % 32 == 0
-// and f % 128 == 0.  `device` is the index of the card the tensors and
-// `stream` belong to (this library links its own CUDA runtime, whose
-// current device is not the caller's).  Returns the CUDA error of the
-// launch (0 = cudaSuccess); the launch is asynchronous on `stream` and
-// allocates nothing.
+// and f % 128 == 0.  ft == f runs the one-pass schedule; a proper divisor
+// ft of f (a multiple of 128) runs the split schedule, which needs ws, an
+// f32 (g e, c, d) workspace.  `device` is the index of the card the
+// tensors and `stream` belong to (this library links its own CUDA
+// runtime, whose current device is not the caller's).  Returns the CUDA
+// error of the launch (0 = cudaSuccess); the launch is asynchronous on
+// `stream` and allocates nothing.
 extern "C" int moe_mlp_fwd(const void* x, const void* wi, const void* wg,
-                           const void* wo, void* out, int dtype, int g, int e,
-                           int c, int d, int f, int device, void* stream) {
+                           const void* wo, void* out, float* ws, int dtype,
+                           int g, int e, int c, int d, int f, int ft,
+                           int device, void* stream) {
+  const bool split = ft != f;
   if (g < 1 || e < 1 || c < 1 || d < BK || f < BN || d % BK != 0 ||
-      f % BN != 0 || e > 65535 ||
+      f % BN != 0 || ft < BN || ft % BN != 0 || f % ft != 0 ||
+      (split && ws == nullptr) || e > 65535 ||
       (long long)g * ((c + 15) / 16) > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
-  const Params p{x, wi, wg, wo, out, g, e, c, d, f};
+  const Params p{x, wi, wg, wo, out, ws, g, e, c, d, f, ft};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = static_cast<size_t>(moe_mlp_smem_bytes(dtype, c, f));
+  const size_t smem = static_cast<size_t>(moe_mlp_smem_bytes(dtype, c, ft));
+  cudaError_t err = cudaErrorInvalidValue;
   switch (dtype) {
     case 0:
-      return static_cast<int>(launch(moe_mlp_f32_kernel, p, BC32, smem, st));
+      err = split ? launch(moe_mlp_f32_kernel<true>, p, BC32, smem, st)
+                  : launch(moe_mlp_f32_kernel<false>, p, BC32, smem, st);
+      break;
     case 1:
       if (c <= 16)
-        return static_cast<int>(
-            launch(moe_mlp_bf16_kernel<16, 2, 2>, p, 16, smem, st));
-      return static_cast<int>(
-          launch(moe_mlp_bf16_kernel<32, 4, 1>, p, 32, smem, st));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+        err = split
+                  ? launch(moe_mlp_bf16_kernel<16, 2, 2, true>, p, 16, smem, st)
+                  : launch(moe_mlp_bf16_kernel<16, 2, 2, false>, p, 16, smem,
+                           st);
+      else
+        err = split
+                  ? launch(moe_mlp_bf16_kernel<32, 4, 1, true>, p, 32, smem, st)
+                  : launch(moe_mlp_bf16_kernel<32, 4, 1, false>, p, 32, smem,
+                           st);
+      break;
   }
+  return static_cast<int>(err);
 }

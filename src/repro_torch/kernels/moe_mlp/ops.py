@@ -6,6 +6,10 @@ and the expert weights wi/wg ``(E, D, F)``, wo ``(E, F, D)``, and returns
 hand-written kernel (``csrc/moe_mlp.cu``) or raises; it takes the plain
 version only for tensors on the CPU.  ``expert_mlp.launches`` counts
 kernel launches.
+
+The shape alone picks the kernel's schedule: one pass over d_ff when h
+for all of it fits a block's shared memory, else d_ff in tiles of
+``split_tile(F)`` columns whose outputs are summed in an f32 workspace.
 """
 
 from __future__ import annotations
@@ -20,6 +24,16 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535
 # shared memory one block may use on Hopper (227 KB), cudaFuncSetAttribute
 MAX_SMEM_BYTES = 232448
+# the widest d_ff tile of the split schedule: h for 1024 columns takes
+# 129 KB of a block's shared memory at 32 rows in bf16
+MAX_F_TILE = 1024
+
+
+def split_tile(f: int) -> int:
+    """The d_ff tile of the split schedule: the largest multiple of 128
+    that divides ``f`` and is at most ``MAX_F_TILE``."""
+    m = f // 128
+    return 128 * max(q for q in range(1, MAX_F_TILE // 128 + 1) if m % q == 0)
 
 
 def _check(x, wi, wg, wo) -> None:
@@ -58,19 +72,20 @@ def expert_mlp(x: torch.Tensor, wi: torch.Tensor, wg: torch.Tensor,
         raise ValueError(f"E = {e} exceeds the grid ({_MAX_GRID_Y})")
     lib = kernel.load()
     code = _DTYPE_CODE[x.dtype]
-    smem = lib.moe_mlp_smem_bytes(code, c, f)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"F={f} needs {smem} bytes of shared memory per "
-                         f"block ({x.dtype}, C={c}); the card has "
-                         f"{MAX_SMEM_BYTES}")
+    # the d_ff columns a block holds as h at a time
+    ft = (f if lib.moe_mlp_smem_bytes(code, c, f) <= MAX_SMEM_BYTES
+          else split_tile(f))
     x, wi, wg, wo = (t.contiguous() for t in (x, wi, wg, wo))
     if any(t.data_ptr() % 16 for t in (x, wi, wg, wo)):
         raise ValueError("the kernel loads 16-byte vectors: x and the "
                          "weights must start on a 16-byte boundary")
     out = torch.empty_like(x)
+    ws = (torch.empty(x.shape, dtype=torch.float32, device=x.device)
+          if ft < f else None)
     err = lib.moe_mlp_fwd(
         x.data_ptr(), wi.data_ptr(), wg.data_ptr(), wo.data_ptr(),
-        out.data_ptr(), code, g, e, c, d, f, x.device.index,
+        out.data_ptr(), None if ws is None else ws.data_ptr(), code, g, e, c,
+        d, f, ft, x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"moe_mlp kernel launch failed: CUDA error {err}")

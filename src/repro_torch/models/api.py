@@ -5,7 +5,8 @@
     train_logits(params, batch, chunk)        -> (logits (b, s, Vp), aux_loss)
     prefill(params, batch, ...)               -> (last_logits, cache)
     decode(params, batch, cache, cur_len)     -> (logits, cache), in place
-    init_cache(batch, seq_len, device)        -> zero stacked bf16 KV cache
+    init_cache(batch, seq_len, device)        -> zero stacked cache: bf16 KV,
+                                                 or RWKV states (WKV in f32)
 
 Every method that creates tensors runs on ``cuda`` unless the caller
 passes ``device="cpu"``.  ``train_logits`` takes the f32 master

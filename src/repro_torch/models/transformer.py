@@ -1,14 +1,17 @@
-"""Decoder LM assembly of the port, dense and MoE families.
+"""Decoder LM assembly of the port: the dense, MoE and RWKV (``ssm``)
+families.
 
 Mirrors ``repro.models.transformer``: parameters keep the stacked
 leading layer axis, and a Python loop over layers takes the place of
 ``lax.scan``.  MoE layers return the load-balance aux loss, which
-``decoder_forward`` sums over layers as the JAX function does.  Three
-modes:
+``decoder_forward`` sums over layers as the JAX function does.  RWKV
+layers (time mix and channel mix, ``models/rwkv.py``) carry a recurrent
+state instead of a KV cache.  Three modes:
 
   train   -> logits over all positions, each layer checkpointed
              (recomputed in the backward pass, as ``jax.checkpoint``)
-  prefill -> logits at the last position + a stacked KV cache
+  prefill -> logits at the last position + a stacked cache (KV, or the
+             RWKV states)
   decode  -> one-token step that updates the stacked cache IN PLACE
 
 Other families raise ``NotImplementedError`` naming their ROADMAP item.
@@ -24,9 +27,10 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs import ROADMAP
 from repro_torch.models import layers as ll
 from repro_torch.models import moe as me
+from repro_torch.models import rwkv as rw
 from repro_torch.models.common import cast, stack_inits
 
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "ssm")
 MODES = ("train", "prefill", "decode")
 
 
@@ -42,9 +46,16 @@ def check_family(cfg) -> None:
 # ---------------------------------------------------------------------------
 
 def init_layer(gen: torch.Generator, cfg) -> Dict:
-    """One decoder layer (norms + attention + MLP or MoE).  The stacked
-    layers share one structure, so the JAX package builds and applies
-    every one as layer 0 (``is_moe_layer(0)``); so does the port."""
+    """One decoder layer (norms + attention + MLP or MoE, or norms + RWKV
+    time mix and channel mix).  The stacked layers share one structure,
+    so the JAX package builds and applies every one as layer 0
+    (``is_moe_layer(0)``); so does the port."""
+    if cfg.family == "ssm":
+        blk = rw.init_rwkv_block(gen, cfg)
+        return {"norm1": ll.init_norm(gen, cfg, cfg.d_model),
+                "mixer": blk["time_mix"],
+                "norm2": ll.init_norm(gen, cfg, cfg.d_model),
+                "ffn": blk["channel_mix"]}
     norm1 = ll.init_norm(gen, cfg, cfg.d_model)
     mixer = ll.init_attention(gen, cfg)
     norm2 = ll.init_norm(gen, cfg, cfg.d_model)
@@ -80,10 +91,18 @@ def kv_capacity(cfg, seq_len: int) -> int:
 
 def cache_spec(cfg, batch: int, seq_len: int,
                dtype: torch.dtype = torch.bfloat16) -> Dict[str, TensorSpec]:
-    """Shapes of the stacked decode cache (n_layers, b, kvh, S, hd)."""
+    """Shapes and dtypes of the stacked decode cache: k and v
+    (n_layers, b, kvh, S, hd) in ``dtype``; for RWKV the token-shift
+    states (n_layers, b, 1, d) in ``dtype`` and the WKV state
+    (n_layers, b, h, n, n) in f32, as in JAX."""
     check_family(cfg)
-    shp = (cfg.n_layers, batch, cfg.n_kv_heads, kv_capacity(cfg, seq_len),
-           cfg.head_dim)
+    L = cfg.n_layers
+    if cfg.family == "ssm":
+        h, n = cfg.n_rwkv_heads, cfg.rwkv_head_size
+        shift = TensorSpec((L, batch, 1, cfg.d_model), dtype)
+        return {"shift_tm": shift, "shift_cm": shift,
+                "wkv": TensorSpec((L, batch, h, n, n), torch.float32)}
+    shp = (L, batch, cfg.n_kv_heads, kv_capacity(cfg, seq_len), cfg.head_dim)
     return {"k": TensorSpec(shp, dtype), "v": TensorSpec(shp, dtype)}
 
 
@@ -110,8 +129,10 @@ def apply_layer(p: Dict, x: torch.Tensor, cfg, positions, mode: str,
                 ) -> Tuple[torch.Tensor, Optional[Dict],
                            Optional[torch.Tensor]]:
     """Returns (x, new_cache_entry, aux_loss); the cache entry is None in
-    train mode, and aux is None for a dense FFN, which adds nothing (and
-    launches nothing) to the sum."""
+    train mode, and aux is None for a dense FFN or an RWKV layer, which
+    add nothing (and launch nothing) to the sum."""
+    if cfg.family == "ssm":
+        return _apply_rwkv_layer(p, x, cfg, mode, cache)
     rs = cfg.residual_scale
     h = ll.apply_norm(p["norm1"], x, cfg)
     new_cache = None
@@ -137,6 +158,34 @@ def apply_layer(p: Dict, x: torch.Tensor, cfg, positions, mode: str,
     return x, new_cache, aux
 
 
+def _apply_rwkv_layer(p: Dict, x: torch.Tensor, cfg, mode: str,
+                      cache: Optional[Dict]
+                      ) -> Tuple[torch.Tensor, Optional[Dict], None]:
+    """An RWKV layer.  Prefill returns the new states; decode writes them
+    into ``cache`` (this layer's views of the stacked cache) in place,
+    each cast to the cache leaf's dtype as JAX's update does.  The time
+    mix runs at its own chunk (32), not the decoder's, as in JAX."""
+    rs = cfg.residual_scale
+    st = cache or {}
+    h = ll.apply_norm(p["norm1"], x, cfg)
+    mix, shift_tm, wkv = rw.apply_time_mix(
+        p["mixer"], h, cfg, shift_state=st.get("shift_tm"),
+        wkv_state=st.get("wkv"), mode=mode)
+    x = x + rs * mix
+    h2 = ll.apply_norm(p["norm2"], x, cfg)
+    f, shift_cm = rw.apply_channel_mix(p["ffn"], h2, cfg,
+                                       shift_state=st.get("shift_cm"))
+    x = x + rs * f
+    if mode == "train":
+        return x, None, None
+    new = {"shift_tm": shift_tm, "shift_cm": shift_cm, "wkv": wkv}
+    if mode == "decode":
+        for n, c in cache.items():
+            c.copy_(new[n])
+        return x, cache, None
+    return x, new, None
+
+
 def _unstack(tree: Dict, n: int) -> List[Dict]:
     """The per-layer trees of a stacked tree, as views (a decode step
     writes its cache entries through them).  Each leaf is split by one
@@ -154,7 +203,8 @@ def decoder_forward(layers_params: Dict, x: torch.Tensor, cfg, positions,
                     ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
     """Run the decoder stack -> (x, cache, aux_loss summed over layers).
     Train returns no cache; prefill returns a new stacked cache in the
-    compute dtype; decode writes into ``cache`` in place and returns it."""
+    compute dtype (RWKV's WKV state in f32); decode writes into ``cache``
+    in place and returns it."""
     seq_capacity = seq_capacity or x.shape[1]
     new = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -176,8 +226,7 @@ def decoder_forward(layers_params: Dict, x: torch.Tensor, cfg, positions,
         return x, None, aux
     if mode == "decode":
         return x, cache, aux
-    return (x, {n: torch.stack([c[n] for c in new]) for n in ("k", "v")},
-            aux)
+    return x, {n: torch.stack([c[n] for c in new]) for n in new[0]}, aux
 
 
 # ---------------------------------------------------------------------------

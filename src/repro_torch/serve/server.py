@@ -86,7 +86,7 @@ class BatchServer:
             tokens = torch.as_tensor(np.asarray(req.prompt)[None],
                                      dtype=torch.int64, device=dev)
             logits, rcache = self._prefill(self.params, {"tokens": tokens})
-            for n, c in cache.items():           # in place, cast to bf16
+            for n, c in cache.items():   # in place, in the leaf's dtype
                 c[:, slot].copy_(rcache[n][:, 0])
             tok = int(torch.argmax(logits[0, -1].float()))
             self.prefill_seconds.append(time.perf_counter() - t0)

@@ -7,8 +7,12 @@ machine that has none:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 
 Tolerances are ``tests/test_kernels.py``'s: 2e-5 in f32 and 2e-2 in bf16
-for flash attention, 1e-4 and 3e-2 for the expert MLP.  The quantize
-kernel's q and scales equal its plain version's bit for bit.
+for flash attention, 1e-4 and 3e-2 for the expert MLP, 5e-4 in f32 for
+WKV6 (1e-3 under strong decay).  The quantize kernel's q and scales
+equal its plain version's bit for bit.  WKV6 in bf16: the kernel and its
+plain version compute in f32 from the same bf16 inputs and differ only
+in the order of f32 sums; y is rounded once to bf16, so they may land a
+bf16 ulp apart, which is at most 2^-7 (7.8e-3) of |y|: 8e-3.
 """
 
 import pytest
@@ -18,6 +22,7 @@ from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.moe_mlp import ops as moe_ops
 from repro_torch.kernels.quantize import ops as q_ops
 from repro_torch.kernels.quantize.ref import quantize_plain
+from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
 
 # (b, s, h, kvh, d, window): the sweep of tests/test_kernels.py, then
 # ragged s, GQA, d=16, a window that is not a multiple of the tile and
@@ -123,6 +128,19 @@ def test_moe_mlp_kernel(card, g, e, c, d, f, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [1, 40])
+def test_moe_mlp_kernel_large_d_ff(card, c, dtype):
+    """jamba-v0.1-52b's d_ff (14336) does not fit a block's shared memory
+    whole: the split schedule, 14 tiles of 1024 summed in f32."""
+    x, wi, wg, wo = _moe_inputs(card, 1, 2, c, 256, 14336, dtype)
+    got = moe_ops.expert_mlp(x, wi, wg, wo)
+    want = moe_ops.expert_mlp_plain(x, wi, wg, wo)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=MOE_TOL[dtype], rtol=MOE_TOL[dtype])
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("c", [1, 64])
 def test_moe_mlp_kernel_keeps_h_in_f32(card, c):
     """In bf16 the kernel's outputs differ from the plain version's (f32
@@ -137,6 +155,62 @@ def test_moe_mlp_kernel_keeps_h_in_f32(card, c):
     rounded = torch.einsum("gecf,efd->gecd", h.bfloat16().float(), wo)
     share = (got != want).float().mean()
     assert share < (rounded.bfloat16() != want).float().mean()
+
+
+# (b, s, h, n, chunk): the sweep of tests/test_kernels.py, then ragged s
+# and rwkv6-7b's heads at a served length
+WKV_CASES = [(2, 128, 2, 64, 64), (1, 256, 4, 32, 32), (2, 64, 1, 16, 16),
+             (1, 96, 2, 32, 32), (1, 1, 2, 64, 32), (2, 77, 2, 16, 32),
+             (1, 1036, 2, 64, 64), (1, 300, 64, 64, 32)]
+WKV_TOL = {torch.float32: 5e-4, torch.bfloat16: 8e-3}
+
+
+def _wkv_inputs(card, b, s, h, n, dtype, w0=-1.0, seed=0):
+    gen = torch.Generator(device=card).manual_seed(seed + s * 7 + h + n)
+    r, k, v = (torch.randn(b, s, h, n, generator=gen, device=card).to(dtype)
+               for _ in range(3))
+    lw = -torch.exp(w0 + 0.5 * torch.randn(b, s, h, n, generator=gen,
+                                           device=card))
+    u = 0.5 * torch.randn(h, n, generator=gen, device=card)
+    state0 = torch.randn(b, h, n, n, generator=gen, device=card)
+    return r, k, v, lw, u, state0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,n,chunk", WKV_CASES)
+def test_wkv6_kernel(card, b, s, h, n, chunk, dtype, with_state):
+    r, k, v, lw, u, state0 = _wkv_inputs(card, b, s, h, n, dtype)
+    state0 = state0 if with_state else None
+    n0 = wkv_ops.wkv6.launches
+    y, st = wkv_ops.wkv6_state(r, k, v, lw, u, state0, chunk=chunk)
+    torch.cuda.synchronize()
+    assert wkv_ops.wkv6.launches == n0 + 1
+    y_want, st_want = wkv_ops.wkv6_state_plain(r, k, v, lw, u, state0)
+    assert y.dtype == dtype and st.dtype == torch.float32
+    torch.testing.assert_close(y.float(), y_want.float(),
+                               atol=WKV_TOL[dtype], rtol=WKV_TOL[dtype])
+    torch.testing.assert_close(st, st_want, atol=5e-4, rtol=5e-4)
+
+
+@pytest.mark.gpu
+def test_wkv6_kernel_strong_and_slow_decay(card):
+    """w = 1e-3 (tests/test_kernels.py's strong decay) stays finite; w
+    close to 1 (w0 = -6) carries the state over all 2048 tokens."""
+    r, k, v, _, _, _ = _wkv_inputs(card, 1, 128, 1, 32, torch.float32)
+    w = torch.full_like(r, 1e-3)
+    u = torch.zeros(1, 32, device=card)
+    y = wkv_ops.wkv6(r, k, v, w, u, chunk=64)
+    y_want, _ = wkv_ops.wkv6_state_plain(r, k, v, torch.log(w), u)
+    assert torch.isfinite(y).all()
+    torch.testing.assert_close(y, y_want, atol=1e-3, rtol=1e-3)
+    r, k, v, lw, u, state0 = _wkv_inputs(card, 1, 2048, 2, 64, torch.float32,
+                                         w0=-6.0)
+    y, st = wkv_ops.wkv6_state(r, k, v, lw, u, state0, chunk=32)
+    y_want, st_want = wkv_ops.wkv6_state_plain(r, k, v, lw, u, state0)
+    torch.testing.assert_close(y, y_want, atol=5e-4, rtol=5e-4)
+    torch.testing.assert_close(st, st_want, atol=5e-4, rtol=5e-4)
 
 
 def _quantize_exact(x):
@@ -207,7 +281,8 @@ def test_train_step_on_the_card(card):
     step = build_train_step(model, opts)
     pipe = SyntheticPipeline(cfg, ShapeConfig("t", 32, 4, "train"), seed=0)
     n_leaves = len(list(leaves(cpu["params"])))
-    counts = (q_ops.quantize, ops.flash_attention, moe_ops.expert_mlp)
+    counts = (q_ops.quantize, ops.flash_attention, moe_ops.expert_mlp,
+              wkv_ops.wkv6)
     for i in range(2):
         b = pipe.batch(i)
         before = [c.launches for c in counts]

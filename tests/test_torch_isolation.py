@@ -101,6 +101,14 @@ def test_launcher_serves_olmoe_on_cpu(capsys):
     assert "req 2:" in out and "server.requests 3" in out
 
 
+def test_launcher_serves_rwkv_on_cpu(capsys):
+    from repro_torch.launch import serve as launch_serve
+    launch_serve.main(["--arch", "rwkv6-7b", "--requests", "3",
+                       "--max-new", "2", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "req 2:" in out and "server.requests 3" in out
+
+
 def test_moe_archs_resolve_in_the_port():
     from repro_torch.configs import get_config
     for name in ("olmoe-1b-7b", "mixtral-8x22b"):
@@ -113,12 +121,12 @@ def test_unported_archs_and_families_name_their_roadmap_item():
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("rwkv6-7b")
+        get_config("jamba-v0.1-52b")
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("no-such-arch")
-    ssm = replace(get_config("stablelm-1.6b"), family="ssm")
+    hybrid = replace(get_config("stablelm-1.6b"), family="hybrid")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(ssm)
+        build_model(hybrid)
 
 
 def test_config_copies_match_the_jax_package():

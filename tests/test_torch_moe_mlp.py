@@ -95,3 +95,15 @@ def test_expert_mlp_rejects_bad_inputs():
         ops.expert_mlp(x, wi.bfloat16(), wi, wo)
     with pytest.raises(ValueError, match="want x"):
         ops.expert_mlp(x[0], wi, wi, wo)
+
+
+@pytest.mark.parametrize("f,tile", [(14336, 1024), (16384, 1024),
+                                    (1152, 384), (3072, 1024), (896, 896),
+                                    (128 * 13, 128)])
+def test_split_tile_divides_d_ff(f, tile):
+    """The split schedule's d_ff tile: the largest multiple of 128 that
+    divides d_ff and is at most MAX_F_TILE (jamba-v0.1-52b's 14336 and
+    mixtral-8x22b's 16384 walk 14 and 16 tiles of 1024)."""
+    got = ops.split_tile(f)
+    assert got == tile and f % got == 0 and got % 128 == 0
+    assert got <= ops.MAX_F_TILE
