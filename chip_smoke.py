@@ -2,6 +2,7 @@
 """Drive the PyTorch port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py --kernel-times [--src DIR]
 
 Four paths, each at full width with random weights from --seed, in bf16:
 stablelm-1.6b served (dense; prefill attention in the flash-attention
@@ -17,9 +18,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
                compiler's report
 3. sweep    -- each kernel against its plain PyTorch version on the card:
                flash over the sweep of tests/test_kernels.py x {f32, bf16}
-               plus ragged lengths, GQA, d=16 and a window; moe_mlp over
-               its sweep of tests/test_kernels.py and olmoe's widths at the
-               ragged capacities its prefill and decode give, then at
+               plus ragged lengths on both sides of the 128-row tiles,
+               GQA, d=16 and 32, windows that end inside a tile and
+               olmoe's heads; moe_mlp over its sweep of
+               tests/test_kernels.py and olmoe's widths at the ragged
+               capacities its prefill and decode give, decode steps of
+               4 and 8 slots and of C > 1 folded into one row tile, then at
                jamba-v0.1-52b's and mixtral-8x22b's widths (d_ff 14336 and
                16384: the split schedule), timed at their prefill shapes;
                quantize bit for bit over the sweep of tests/test_kernels.py
@@ -45,8 +49,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
                version and three torch.bmm (a yardstick the port never
                calls) timed at the prefill (C=320) and decode (G=4, C=1)
                shapes, where the kernel is also checked to keep h in f32,
-               and alone at three one-wave shapes that tell whether L2,
-               device memory or the block itself sets its pace
+               and alone at three shapes that tell whether L2 or device
+               memory sets its pace
 9. train    -- olmoe freed; stablelm-1.6b, f32 master params drawn on the
                card, 10 steps of build_train_step on 4 x 2048 tokens of the
                synthetic pipeline with grad_compress: finite, falling loss,
@@ -79,6 +83,15 @@ It prints the kernel table as one JSON line, then the card's name and power
 limit, then the result line {"ok": true, "device": {...}} last.  Without a
 CUDA device, or without the repo's ``src/repro_torch`` beside it, it exits
 non-zero and prints no result.
+
+``--kernel-times`` runs only phases 1 and 2 for the flash_attention and
+moe_mlp kernels and their timings (phase 6's at stablelm's and olmoe's
+attention shapes, phase 8's at olmoe's prefill and decode, and at
+jamba's and mixtral's prefill, and the waves), then prints the times as
+one JSON line and the card's line, with no result line.  ``--src DIR``
+imports and builds ``repro_torch`` from DIR instead of this checkout's
+``src``: run once per tree, in turns, to compare two trees (e.g. a
+parent commit unpacked with ``git archive``) on one card.
 """
 
 from __future__ import annotations
@@ -118,11 +131,15 @@ MOE_TOL = {"float32": 1e-4, "bfloat16": 3e-2}  # tests/test_kernels.py
 MOE_LOGIT_RTOL = 0.05
 # (g, e, c, d, f): tests/test_kernels.py's moe_mlp sweep, then olmoe-1b-7b
 # (E=64, D=2048, F=1024) at the capacities of prompts of 159, 1762 and 2048
-# tokens (C=25, 276, 320) and of a decode step over 4 slots (G=4, C=1)
+# tokens (C=25, 276, 320) and of a decode step over 4 slots (G=4, C=1),
+# then decode steps folded into one row tile per expert (G C <= 64: 8
+# slots, and C > 1) at olmoe's widths and at a narrow one
 MOE_SWEEP = [(2, 4, 128, 64, 256), (1, 2, 64, 128, 512), (2, 2, 128, 32, 128),
              (1, 64, 1, 2048, 1024), (1, 64, 25, 2048, 1024),
              (1, 64, 276, 2048, 1024), (1, 64, 320, 2048, 1024),
-             (4, 64, 1, 2048, 1024)]
+             (4, 64, 1, 2048, 1024), (8, 64, 1, 2048, 1024),
+             (3, 64, 5, 2048, 1024), (2, 64, 17, 2048, 1024),
+             (8, 4, 1, 64, 256), (3, 4, 5, 64, 256), (2, 4, 17, 64, 256)]
 MOE_PREFILL, MOE_DECODE = (1, 64, 320, 2048, 1024), (4, 64, 1, 2048, 1024)
 # d_ff too large for the one-pass schedule: jamba-v0.1-52b (E=16, top-2,
 # capacity factor 1.0) and mixtral-8x22b (E=8, top-2, capacity factor 1.25)
@@ -177,17 +194,60 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device ms of ``fn`` over ``iters`` calls, queued behind a
+    ~20 ms sleep kernel: the calls are all enqueued before the first
+    starts, so a kernel shorter than its wrapper's host time is timed on
+    the card, not on the host."""
     import torch
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(40_000_000)
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def phase_build(build, mods) -> None:
+    """One nvcc per kernel source, all started together; the compiler's
+    report (registers, shared memory, spills) printed."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(mods)) as pool:
+        paths = list(pool.map(lambda m: build.build(m.SOURCE), mods))
+    print(f"build: {len(mods)} kernels in {time.perf_counter() - t0:.1f} s")
+    for mod, path in zip(mods, paths):
+        mod.load()
+        for line in path.with_suffix(".log").read_text().splitlines():
+            if "Compiling entry" in line or "registers" in line \
+                    or "spill" in line:
+                print(f"  ptxas {path.name}: {line.strip()}")
+
+
+def kernel_times(torch, card: str, src: Path) -> None:
+    """--kernel-times: flash_attention and moe_mlp from ``src``, built and
+    timed at the main paths' shapes, each checked against its plain
+    version first."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import kernel, ops
+    from repro_torch.kernels.moe_mlp import kernel as moe_kernel
+    from repro_torch.kernels.moe_mlp import ops as moe_ops
+    phase_build(build, (kernel, moe_kernel))
+    times = {f"{ARCH} attention": phase_timing(torch, ops, MAIN_SHAPE),
+             f"{MOE_ARCH} attention": phase_timing(torch, ops,
+                                                   MOE_ATTN_SHAPE)}
+    shapes = {f"{MOE_ARCH} prefill": MOE_PREFILL,
+              f"{MOE_ARCH} decode": MOE_DECODE,
+              **{f"{a} prefill": sh for a, sh in MOE_LARGE_F_PREFILL.items()}}
+    for label, shape in shapes.items():
+        times[label] = phase_moe_timing(torch, moe_ops, shape, label, card)
+        torch.cuda.empty_cache()
+    phase_moe_waves(torch, moe_ops, card)
+    print(json.dumps({"src": str(src), "times": times}))
 
 
 def phase_sweep(torch, ops) -> None:
@@ -201,7 +261,19 @@ def phase_sweep(torch, ops) -> None:
              (1, 300, 4, 2, 64, 100), (2, 130, 4, 2, 32, None),
              # stablelm's own heads at its longest served prompt and at the
              # model phase's length
-             (1, 1762, 32, 32, 64, 0), (1, 2048, 32, 32, 64, 0)]
+             (1, 1762, 32, 32, 64, 0), (1, 2048, 32, 32, 64, 0),
+             # s on both sides of the bf16 kernel's 128-row q and KV tiles
+             (1, 127, 4, 4, 64, 0), (1, 128, 4, 2, 64, 0),
+             (1, 129, 4, 4, 64, 0), (2, 191, 4, 2, 64, 0),
+             (1, 255, 4, 4, 128, 0), (1, 257, 4, 4, 64, 0),
+             # windows that end inside a KV tile, not causal across edges
+             (1, 513, 4, 2, 64, 200), (1, 300, 2, 2, 128, 100),
+             (1, 257, 4, 2, 64, None),
+             # olmoe-1b-7b's heads at its longest profiled prompt and at
+             # 2048; GQA 32/8 at d=128 across a tile edge; d=16 and 32
+             (1, 1953, 16, 16, 128, 0), (1, 2048, 16, 16, 128, 0),
+             (1, 257, 32, 8, 128, 0), (1, 257, 4, 2, 16, 0),
+             (2, 129, 4, 4, 32, 0)]
     gen = torch.Generator(device="cuda").manual_seed(1)
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
@@ -568,13 +640,12 @@ def phase_moe_timing(torch, moe_ops, shape, label: str, card: str):
 
 
 def phase_moe_waves(torch, moe_ops, card: str) -> None:
-    """Where a moe_mlp block's time goes: the kernel at shapes that fill
-    at most one wave of 132 blocks (one 32-row block per SM), so that the
-    time is one block's.  (E=64, C=32): each block streams its own
-    expert; (E=13, C=320): ten blocks share each expert through L2;
-    (E=132, C=32): every block's expert comes from device memory.  If the
-    three agree, neither L2 nor device memory sets the pace: the block's
-    own staging and arithmetic do."""
+    """What sets the moe_mlp kernels' pace, at olmoe's widths: (E=64,
+    C=32) reads 64 experts' weights for 32 rows each; (E=13, C=320) a
+    fifth of the weights for ten times the rows, its weight tiles read
+    three times from L2; (E=132, C=32) twice the weights of the first.
+    Times that follow the weights' bytes say device memory sets the pace;
+    times that agree at all three say the blocks' own pace does."""
     gen = torch.Generator(device="cuda").manual_seed(6)
     for g, e, c in ((1, 64, 32), (1, 13, 320), (1, 132, 32)):
         args = _moe_inputs(torch, gen, g, e, c, 2048, 1024, torch.bfloat16)
@@ -582,9 +653,10 @@ def phase_moe_waves(torch, moe_ops, card: str) -> None:
                              moe_ops.expert_mlp_plain(*args), "bfloat16")
         check(ok, f"moe_mlp G={g} E={e} C={c}: error {err}")
         ms = cuda_ms(lambda: moe_ops.expert_mlp(*args))
-        blocks = g * e * -(-c // 32)
-        print(f"moe waves G={g} E={e} C={c} D=2048 F=1024 bf16: {blocks} "
-              f"blocks, kernel {ms:.4f} ms [{card}]")
+        wbytes = 3 * e * 2048 * 1024 * 2
+        print(f"moe waves G={g} E={e} C={c} D=2048 F=1024 bf16: weights "
+              f"{wbytes / 1e6:.1f} MB ({wbytes / PEAK_BYTES * 1e3:.4f} ms "
+              f"at the memory rate), kernel {ms:.4f} ms [{card}]")
         del args
 
 
@@ -1125,13 +1197,17 @@ def phase_moe_train(torch, counters, seed: int, card: str) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kernel-times", action="store_true",
+                    help="only build and time flash_attention and moe_mlp")
+    ap.add_argument("--src", type=Path, default=ROOT / "src",
+                    help="the tree to import repro_torch from")
     args = ap.parse_args()
 
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    src = ROOT / "src"
+    src = args.src.resolve()
     if not (src / "repro_torch").is_dir():
         print(f"chip_smoke: no repro_torch package under {src}",
               file=sys.stderr)
@@ -1139,6 +1215,14 @@ def main() -> int:
     sys.path.insert(0, str(src))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.kernel_times:
+        card = card_line()
+        print(f"card: {card}; torch {torch.__version__}, CUDA "
+              f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+        with torch.no_grad():
+            kernel_times(torch, card, src)
+        print(card)
+        return 0
     import gc
 
     import numpy as np
@@ -1162,17 +1246,7 @@ def main() -> int:
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
     # 2. build: one nvcc per source, all started together
-    mods = (kernel, moe_kernel, q_kernel, w_kernel)
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(mods)) as pool:
-        paths = list(pool.map(lambda m: build.build(m.SOURCE), mods))
-    print(f"build: {len(mods)} kernels in {time.perf_counter() - t0:.1f} s")
-    for mod, path in zip(mods, paths):
-        mod.load()
-        for line in path.with_suffix(".log").read_text().splitlines():
-            if "Compiling entry" in line or "registers" in line \
-                    or "spill" in line:
-                print(f"  ptxas {path.name}: {line.strip()}")
+    phase_build(build, (kernel, moe_kernel, q_kernel, w_kernel))
 
     # 3. each kernel against its plain version
     phase_sweep(torch, ops)
@@ -1226,7 +1300,7 @@ def main() -> int:
                 "expert_mlp", moe_ops.expert_mlp_plain, MOE_LOGIT_RTOL)
     moe_launches, _ = phase_serve(torch, np, mcfg, mmodel, mparams, counters,
                                   args.seed, card)
-    phase_timing(torch, ops, MOE_ATTN_SHAPE)
+    t_olmoe = phase_timing(torch, ops, MOE_ATTN_SHAPE)
     tm = phase_moe_timing(torch, moe_ops, MOE_PREFILL, "prefill", card)
     td = phase_moe_timing(torch, moe_ops, MOE_DECODE, "decode", card)
     phase_moe_waves(torch, moe_ops, card)
@@ -1302,7 +1376,12 @@ def main() -> int:
          "replaces": "src/repro/kernels/flash_attention/kernel.py:37",
          "launches": sum(v["flash_attention"] for v in by_path.values()),
          "launches_by_path": {a: v["flash_attention"]
-                              for a, v in by_path.items()}, **t},
+                              for a, v in by_path.items()}, **t,
+         "shape": "b={b} s={s} h={h} d={d} bf16 (stablelm-1.6b prefill)"
+                  .format(**MAIN_SHAPE),
+         "olmoe": {**t_olmoe,
+                   "shape": "b={b} s={s} h={h} d={d} bf16 (olmoe-1b-7b "
+                            "prefill)".format(**MOE_ATTN_SHAPE)}},
         {"name": "moe_mlp", "route": "cuda",
          "source": "src/repro_torch/kernels/moe_mlp/csrc/moe_mlp.cu",
          "replaces": "src/repro/kernels/moe_mlp/kernel.py:31",

@@ -2,9 +2,10 @@
 
 ``flash_attention(q, k, v)`` takes q ``(b, s, h, d)`` and k/v
 ``(b, s_kv, kvh, d)`` with ``kvh`` dividing ``h``.  On a CUDA tensor it
-launches the hand-written kernel (``csrc/flash_attention.cu``) or
-raises; it takes the plain version only for tensors on the CPU.
-``flash_attention.launches`` counts kernel launches.
+launches the hand-written kernel (``csrc/flash_attention.cu``: bf16 on
+the tensor cores, f32 with exact FMAs) or raises; it takes the plain
+version only for tensors on the CPU.  ``flash_attention.launches``
+counts kernel launches.
 """
 
 from __future__ import annotations
@@ -36,7 +37,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           causal: bool, window: int) -> None:
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"want q (b,s,h,d), k/v (b,s,kvh,d); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -50,12 +52,34 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must lie on one device")
+    # query row i sees keys (i - window, min(i, s_kv - 1)]; the last row
+    # sees none once s >= s_kv + window, where the plain version averages
+    # v over the masked keys and the TPU kernel writes 0
+    if causal and window > 0 and s >= k.shape[1] + window:
+        raise ValueError(f"causal attention with window {window} over "
+                         f"s_kv = {k.shape[1]} keys leaves query rows "
+                         f"{k.shape[1] + window - 1}.. of s = {s} without "
+                         f"a visible key")
+
+
+def check_staging(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """The bf16 kernel stages q, k and v in 16-byte copies (8 values):
+    raise unless each starts on a 16-byte boundary and its batch, sequence
+    and head strides are multiples of 8 values."""
+    for name, t in zip("qkv", (q, k, v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary for "
+                             f"the bf16 kernel's 16-byte copies")
+        if any(st % 8 for st in t.stride()[:3]):
+            raise ValueError(f"{name}'s strides {tuple(t.stride())} must be "
+                             f"multiples of 8 values (16 bytes) in b, s and "
+                             f"h for the bf16 kernel's 16-byte copies")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """Causal (optionally sliding-window) attention -> (b, s, h, d)."""
-    _check(q, k, v)
+    _check(q, k, v, causal, window)
     refuse_autograd("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
@@ -68,6 +92,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"b * h = {b * h} exceeds the grid ({_MAX_GRID_Y})")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("the head dim of q, k and v must be contiguous")
+    if q.dtype == torch.bfloat16:
+        check_staging(q, k, v)
+    o = _launch(q, k, v, causal, window)
+    flash_attention.launches += 1
+    return o
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            window: int) -> torch.Tensor:
+    """The kernel on checked CUDA inputs; uncounted."""
+    b, s, h, d = q.shape
     lib = kernel.load()
     o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     err = lib.flash_attention_fwd(
@@ -79,7 +114,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
-    flash_attention.launches += 1
     return o
 
 

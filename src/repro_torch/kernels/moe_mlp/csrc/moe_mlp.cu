@@ -4,11 +4,12 @@
 // Replaces the TPU kernel src/repro/kernels/moe_mlp/kernel.py
 // (_expert_mlp_kernel, launched by expert_mlp_fwd).  Same function:
 //
-//   out[ge, c, :] = sum_f silu(x[ge,c] . wi[e,:,f]) * (x[ge,c] . wg[e,:,f])
-//                         * wo[e, f, :],        e = ge % E,
+//   out[g, e, c, :] = sum_f silu(x[g,e,c] . wi[e,:,f]) * (x[g,e,c] . wg[e,:,f])
+//                          * wo[e, f, :],
 //
-// x (G E, C, D), wi/wg (E, D, F), wo (E, F, D), all contiguous, one dtype;
-// h = silu(x wi) * (x wg) and the sums in f32; the output in x's dtype.
+// x (G, E, C, D), wi/wg (E, D, F), wo (E, F, D), all contiguous, one
+// dtype; h = silu(x wi) * (x wg) and the sums in f32; the output in x's
+// dtype, rounded once.
 //
 // What bounds it on this card.  A launch does 6 G E C D F flops and must
 // read the expert weights (3 E D F values) once, plus x and out.  At the
@@ -17,86 +18,98 @@
 // 3.35 TB/s): bytes bound it, barely.  A decode step (G=4, C=1) is the
 // weights alone: 0.81 GB, 0.24 ms.
 //
-// The design.
-//  * The accumulator.  The TPU kernel walks d_ff tiles as a sequential
-//    grid axis and carries a (128, D) f32 accumulator in VMEM: 1 MB at
-//    D = 2048, more than the 227 KB of shared memory a block has.  Here
-//    the loop order is turned around so that no (rows, D) accumulator
-//    lives across the d_ff loop.  One block owns BC capacity rows of one
-//    (group, expert) pair and
-//      phase 1  computes h for ALL of d_ff, one 128-column tile at a
-//               time, into shared memory in f32 ((BC, F): 128 KB at
-//               BC = 32, F = 1024), then
-//      phase 2  computes out = h wo one 128-column tile of D at a time,
-//               each accumulated in registers over all of d_ff and
-//               stored once.
-//    h never reaches device memory, as on the TPU, and nothing is
-//    recomputed.  All of d_ff fits shared memory up to F = 1152 at
-//    BC = 32 and 2944 at BC = 16: olmoe-1b-7b's 1024 takes this one-pass
-//    schedule.
-//  * Large d_ff (mixtral-8x22b's 16384, jamba-v0.1-52b's 14336): the
-//    split schedule.  The wrapper cuts d_ff into tiles of FT columns (at
-//    most 1024) and the block runs phases 1 and 2 once per tile, h of one
-//    tile in shared memory in f32.  Each tile's h wo goes into an f32
-//    (G E, C, D) workspace that the wrapper allocates: the first tile
-//    writes it, later tiles add to it (each thread reads back only what
-//    it wrote), and the last tile adds its part and stores the output in
-//    x's dtype.  So h and the partial sums stay f32 throughout, and the
-//    output is rounded once, as in the one-pass schedule.  The workspace
-//    costs 2 (F / FT - 1) passes over G E C D f32 values, which the
-//    one-pass schedule does not make.
-//  * Weight reads.  Each block streams its expert's weights once, so a
-//    launch reads them G * ceil(C / BC) times.  The grid is laid out so
-//    that the blocks of one expert are adjacent in launch order and run
-//    together, and all but the first read of each tile come from L2:
-//    device memory sees the weights about once per launch; L2 sees them
-//    ten times at C = 320 and four times in a 4-slot decode step.
-//  * Staging.  Tiles of x and the weights go through a ring of STAGES
-//    shared-memory buffers filled with cp.async (16 bytes a thread),
-//    STAGES - 1 steps ahead of the tensor cores.  Phase 1 and phase 2
-//    steps run as one flat loop, so the first wo tiles load while the
-//    last h tile is computed.
-//  * Arithmetic.  bf16 inputs go through mma.sync m16n8k16 (bf16 x bf16
-//    -> f32), fragments loaded with ldmatrix.  h stays f32, as in the TPU
-//    kernel: for h wo each f32 value of h is split into three bf16 parts,
-//    hi + mid + lo, which hold it exactly (24 significant bits in three
-//    of 8), and the three products with the bf16 wo are exact in f32.
-//    f32 inputs take exact f32 FMAs in a separate kernel (the f32
-//    tolerance of 1e-4 excludes TF32).
-//  * Ragged C.  Rows past C are loaded as zeros and never stored, so any
-//    C >= 1 works (the Pallas kernel asserted C % block_c == 0).  Blocks
-//    of 32 rows, or 16 when C <= 16 (decode), which then fit two to an SM.
-//    D must be a multiple of 32 and F of 128 (the wrapper checks).
+// bf16: two wgmma GEMMs per expert (moe_mlp_up_kernel,
+// moe_mlp_down_kernel).
+//  * Why not one fused pass.  The first version held h for all of d_ff
+//    in shared memory, which caps a block at 32 capacity rows; every
+//    block then streams its expert's 12.6 MB of weights for 32 rows (32
+//    flops per weight byte, where the tensor cores want ~300), so ten
+//    blocks per expert at C = 320 move ~8 GB through L2 and a block's
+//    own pace (16 mma.sync per barrier) set the time.  Here the rows of
+//    an expert form the M dimension of two GEMMs: the up GEMM x [wi | wg]
+//    with the SwiGLU in its epilogue, and the down GEMM h wo.  h (E, G C,
+//    F) goes to device memory between them, in three bf16 parts (below):
+//    126 MB written and 126 MB read back at olmoe's prefill (0.075 ms at
+//    the memory rate, partly in L2), where the TPU kernel kept h in
+//    VMEM.  Large d_ff needs no schedule of its own: it is the down
+//    GEMM's reduction depth.
+//  * Rows.  The M dimension of expert e is its G C rows, row m being
+//    (g, c) = (m / C, m % C) of x's (G, E, C, D) layout, in tiles of 64
+//    rows (rows past G C are zero-filled and never stored).  A decode
+//    step (G = 4 slots, C = 1) is one tile of 4 rows per expert, so each
+//    block reads its slice of the expert's weights once and the weights
+//    cross L2 once per launch; its 256-column tiles (d_ff, then D) give
+//    256 and 512 blocks at E = 64.
+//  * h at full precision.  The TPU kernel keeps h in f32.  The up
+//    GEMM's epilogue splits each f32 h into three bf16 parts whose sum is
+//    h exactly (24 significant bits in three of 8), and the down GEMM
+//    multiplies every part by the same staged wo tile (three wgmma per
+//    k16 step on one B operand); the products are exact in f32 and
+//    summed in the f32 accumulator.
+//  * Each block: two consumer warpgroups and four producer warps.  In
+//    the up GEMM a warpgroup takes 128 columns of both wi and wg as one
+//    m64n256k16 product (its wi and wg tiles side by side in shared
+//    memory, so the x tile is read once); in the down GEMM, 128 columns
+//    of wo as m64n128k16 products.  A is K-major and the weights
+//    MN-major through the descriptor's transpose bit, both from shared
+//    memory.  The producers stage the tiles with cp.async into the
+//    128-byte swizzled layout, through a ring of STAGES buffers with
+//    "full" and "empty" mbarriers (common/csrc/sm90.cuh).  The copies'
+//    issue rate is what the producers must keep up with: each thread
+//    works out its pointers and swizzled offsets once per tile, and four
+//    warps issue them (with two, the consumers wait on their data).  One
+//    k-step of 64 is 4 (up) or 12 (down) wgmma a warpgroup between
+//    barrier waits; one wgmma group stays in flight while the next stage
+//    is awaited.  No __syncthreads in the loop.
+//  * Any C >= 1, D % 8 == 0 and F % 64 == 0 (the wrapper asks D % 32 and
+//    F % 128, as the f32 kernel does): partial tiles of D and d_ff are
+//    zero-filled.
 //
-// Not yet: wgmma with TMA staging, skipping capacity tiles that hold no
-// token, and one read of each expert's weights per decode step.
+// f32: exact FMAs (moe_mlp_f32_kernel), the first version of this
+// kernel: the f32 tolerance of 1e-4 excludes TF32.  One block owns 16
+// capacity rows of one (group, expert) pair and
+//   phase 1  computes h for ALL of d_ff (or a tile of FT columns of it),
+//            one 128-column tile at a time, into shared memory in f32,
+//   phase 2  computes out = h wo one 128-column tile of D at a time.
+// When h for all of d_ff does not fit a block's shared memory (F > FT,
+// e.g. mixtral-8x22b's 16384), the wrapper cuts d_ff into tiles of FT
+// columns and each tile's h wo is summed into an f32 (G E, C, D)
+// workspace that the wrapper allocates; the last tile stores the output.
+// No main path runs the expert FFN in f32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
-
-constexpr int NT = 256;    // threads per block (8 warps)
-constexpr int BN = 128;    // columns of an output tile: d_ff (1), D (2)
-constexpr int BK = 32;     // reduction depth of a phase-1 step (over D)
-constexpr int BK2 = 64;    // reduction depth of a phase-2 step (over d_ff)
-
-struct Params {
-  const void* x;
-  const void* wi;
-  const void* wg;
-  const void* wo;
-  void* out;
-  float* ws;      // split schedule: f32 (G E, C, D) partial sums
-  int g, e, c, d, f;
-  int ft;         // d_ff columns per tile: f (one pass) or a divisor of f
-};
 
 __device__ __forceinline__ float silu(float v) {
   return v / (1.0f + expf(-v));
 }
+
+// ---------------------------------------------------------------------------
+// f32: exact FMAs
+// ---------------------------------------------------------------------------
+
+namespace exact {
+
+constexpr int NT = 256;    // threads per block (8 warps)
+constexpr int BN = 128;    // columns of an output tile: d_ff (1), D (2)
+constexpr int BK = 32;     // reduction depth of a step
+
+struct Params {
+  const float* x;
+  const float* wi;
+  const float* wg;
+  const float* wo;
+  float* out;
+  float* ws;      // split schedule: f32 (G E, C, D) partial sums
+  int g, e, c, d, f;
+  int ft;         // d_ff columns per tile: f (one pass) or a divisor of f
+};
 
 // The rows a block owns.  The grid is (G * ceil(C / bc), E): blockIdx.y
 // is the expert, so the blocks that read one expert's weights are
@@ -114,301 +127,6 @@ __device__ __forceinline__ Tile tile_of(const Params& p, int bc) {
   t.rows = min(bc, p.c - t.c0);
   return t;
 }
-
-// ---------------------------------------------------------------------------
-// bf16: mma.sync m16n8k16, f32 accumulation
-// ---------------------------------------------------------------------------
-
-typedef __nv_bfloat16 bf16;
-
-constexpr int XS = BK + 8;    // row stride (bf16) of a staged x tile
-constexpr int WS = BN + 8;    // row stride (bf16) of a staged weight tile
-constexpr int HP = 8;         // f32 row padding of h (conflict-free float2)
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; zeros when !valid (then
-// nothing is read from src).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Four 8x8 b16 matrices; lane l gives the address of row l % 8 of
-// matrix l / 8.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&acc)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// The f32 pair (a, b) as three bf16 pairs with hi + mid + lo == (a, b)
-// exactly: each remainder is exact in f32 and holds 8 fewer significant
-// bits than the one before, so the third fits bf16's 8.
-__device__ __forceinline__ void split3(float2 v, uint32_t& hi, uint32_t& mid,
-                                       uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(v.x, v.y);
-  const float2 hf = __bfloat1622float2(h);
-  const float ra = v.x - hf.x, rb = v.y - hf.y;
-  const __nv_bfloat162 m = __floats2bfloat162_rn(ra, rb);
-  const float2 mf = __bfloat1622float2(m);
-  hi = as_u32(h);
-  mid = as_u32(m);
-  lo = as_u32(__floats2bfloat162_rn(ra - mf.x, rb - mf.y));
-}
-
-// Warps tile a block's BC rows x 128 columns as WM (16 rows each) x WN;
-// each warp holds NJ 8-column mma tiles.  A stage holds the x tile and
-// the wi and wg tiles of a phase-1 step; a phase-2 step's wo tile (BK2
-// rows) takes the place of wi and wg.
-template <int BC>
-struct Bf16Tiling {
-  static constexpr int WM = BC / 16, WN = 8 / WM, NJ = BN / (8 * WN);
-  static constexpr int XTILE = BC * XS;
-  static constexpr int STAGE = XTILE + 2 * BK * WS;
-  static_assert(NJ % 2 == 0 && BK2 <= 2 * BK, "tiling");
-};
-
-// Shared memory of a block that holds h for ft columns of d_ff.
-template <int BC, int STAGES>
-constexpr size_t smem_bf16(int ft) {
-  return (size_t)BC * (ft + HP) * sizeof(float) +
-         (size_t)STAGES * Bf16Tiling<BC>::STAGE * sizeof(bf16);
-}
-
-// The epilogue of a split schedule's output tile: the f32 sum of the
-// tiles so far, stored to the workspace, or to out after the last tile.
-__device__ __forceinline__ void split_store(float* ws, bf16* out, size_t i,
-                                            float a, float b, bool first,
-                                            bool last) {
-  if (!first) {
-    const float2 w = *reinterpret_cast<const float2*>(ws + i);
-    a += w.x;
-    b += w.y;
-  }
-  if (last)
-    *reinterpret_cast<__nv_bfloat162*>(out + i) = __floats2bfloat162_rn(a, b);
-  else
-    *reinterpret_cast<float2*>(ws + i) = make_float2(a, b);
-}
-
-// SPLIT: d_ff is walked in tiles of p.ft columns, each with its own
-// phases 1 and 2 (see the head of this file); otherwise p.ft == p.f and
-// the block makes one pass.
-template <int BC, int STAGES, int MIN_BLOCKS, bool SPLIT>
-__global__ void __launch_bounds__(NT, MIN_BLOCKS)
-moe_mlp_bf16_kernel(const Params p) {
-  using T = Bf16Tiling<BC>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int D = p.d, F = p.f, FT = SPLIT ? p.ft : p.f, HS = FT + HP;
-  float* hs = reinterpret_cast<float*>(smem);
-  bf16* ring = reinterpret_cast<bf16*>(hs + (size_t)BC * HS);
-
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int g = lane >> 2, tig = lane & 3;
-  const int wm = warp % T::WM, wn = warp / T::WM;
-  const int r0 = 16 * wm + g;                 // this thread's rows r0, r0+8
-  const int ncol = wn * (T::NJ * 8);          // this warp's first column
-  const Tile tl = tile_of(p, BC);
-
-  const bf16* x = static_cast<const bf16*>(p.x) +
-                  ((size_t)tl.ge * p.c + tl.c0) * D;
-  const size_t wsz = (size_t)D * F;
-  const bf16* wi = static_cast<const bf16*>(p.wi) + tl.ex * wsz;
-  const bf16* wg = static_cast<const bf16*>(p.wg) + tl.ex * wsz;
-  const bf16* wo = static_cast<const bf16*>(p.wo) + tl.ex * wsz;
-  bf16* out = static_cast<bf16*>(p.out) + ((size_t)tl.ge * p.c + tl.c0) * D;
-  float* wsum = SPLIT ? p.ws + ((size_t)tl.ge * p.c + tl.c0) * D : nullptr;
-
-  // steps of one d_ff tile: phase 1 is (128 columns of h, k over D);
-  // phase 2 (D tile, k over the tile's d_ff); SPLIT repeats them per tile
-  const int nk1 = D / BK, n1 = (FT / BN) * nk1;
-  const int nk2 = FT / BK2, per = n1 + ((D + BN - 1) / BN) * nk2;
-  const int ntiles = F / FT, steps = ntiles * per;
-
-  auto load = [&](int s) {
-    if (s >= steps) return;
-    bf16* xs = ring + (s % STAGES) * T::STAGE;
-    bf16* ws = xs + T::XTILE;
-    const int fb = SPLIT ? (s / per) * FT : 0, sl = SPLIT ? s % per : s;
-    if (sl < n1) {
-      const int f0 = fb + (sl / nk1) * BN, k0 = (sl % nk1) * BK;
-      for (int i = t; i < BC * (BK / 8); i += NT) {
-        const int r = i / (BK / 8), v = (i % (BK / 8)) * 8;
-        const bool ok = r < tl.rows;
-        cp_async16(xs + r * XS + v, ok ? x + (size_t)r * D + k0 + v : x, ok);
-      }
-      for (int i = t; i < BK * (BN / 8); i += NT) {
-        const int r = i / (BN / 8), v = (i % (BN / 8)) * 8;
-        const size_t off = (size_t)(k0 + r) * F + f0 + v;
-        cp_async16(ws + r * WS + v, wi + off, true);
-        cp_async16(ws + (BK + r) * WS + v, wg + off, true);
-      }
-    } else {
-      const int s2 = sl - n1, d0 = (s2 / nk2) * BN;
-      const int k0 = fb + (s2 % nk2) * BK2;
-      for (int i = t; i < BK2 * (BN / 8); i += NT) {
-        const int r = i / (BN / 8), v = (i % (BN / 8)) * 8;
-        const bool ok = d0 + v < D;
-        cp_async16(ws + r * WS + v,
-                   ok ? wo + (size_t)(k0 + r) * D + d0 + v : wo, ok);
-      }
-    }
-  };
-
-  float acc[2][T::NJ][4];                     // phase 1: x wi, x wg
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int j = 0; j < T::NJ; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[m][j][q] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    load(s);
-    cp_async_commit();
-  }
-  for (int s = 0; s < steps; ++s) {
-    cp_async_wait<STAGES - 2>();              // step s has landed ...
-    __syncthreads();                          // ... for every thread, and
-    load(s + STAGES - 1);                     // step s-1's buffer is free
-    cp_async_commit();
-    const bf16* xs = ring + (s % STAGES) * T::STAGE;
-    const bf16* ws = xs + T::XTILE;
-    const int lrow = lane & 15, lcol = (lane >> 4) * 8;
-    const int ti = SPLIT ? s / per : 0, sl = SPLIT ? s % per : s;
-
-    if (sl < n1) {
-      // ---- phase 1: x wi and x wg for one (d_ff tile, k) step ----------
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        uint32_t a[4];
-        ldsm_x4(a, xs + (16 * wm + lrow) * XS + kk + lcol);
-#pragma unroll
-        for (int j = 0; j < T::NJ; j += 2) {
-          const bf16* bp = ws + (kk + lrow) * WS + ncol + 8 * j + lcol;
-          uint32_t bi[4], bg[4];
-          ldsm_x4_t(bi, bp);
-          ldsm_x4_t(bg, bp + BK * WS);
-          mma_bf16(acc[0][j], a, bi[0], bi[1]);
-          mma_bf16(acc[0][j + 1], a, bi[2], bi[3]);
-          mma_bf16(acc[1][j], a, bg[0], bg[1]);
-          mma_bf16(acc[1][j + 1], a, bg[2], bg[3]);
-        }
-      }
-      if (sl % nk1 == nk1 - 1) {              // 128 columns of h are done
-        const int f0 = (sl / nk1) * BN;
-#pragma unroll
-        for (int j = 0; j < T::NJ; ++j) {
-          const int n = f0 + ncol + 8 * j + 2 * tig;
-          *reinterpret_cast<float2*>(hs + r0 * HS + n) =
-              make_float2(silu(acc[0][j][0]) * acc[1][j][0],
-                          silu(acc[0][j][1]) * acc[1][j][1]);
-          *reinterpret_cast<float2*>(hs + (r0 + 8) * HS + n) =
-              make_float2(silu(acc[0][j][2]) * acc[1][j][2],
-                          silu(acc[0][j][3]) * acc[1][j][3]);
-#pragma unroll
-          for (int q = 0; q < 4; ++q) acc[0][j][q] = acc[1][j][q] = 0.f;
-        }
-      }
-    } else {
-      // ---- phase 2: h wo for one (D tile, k) step, h split exactly ------
-      const int s2 = sl - n1, k0 = (s2 % nk2) * BK2;
-#pragma unroll
-      for (int kk = 0; kk < BK2; kk += 16) {
-        const float* hp = hs + r0 * HS + k0 + kk + 2 * tig;
-        uint32_t hi[4], mid[4], lo[4];
-        split3(*reinterpret_cast<const float2*>(hp), hi[0], mid[0], lo[0]);
-        split3(*reinterpret_cast<const float2*>(hp + 8 * HS), hi[1], mid[1],
-               lo[1]);
-        split3(*reinterpret_cast<const float2*>(hp + 8), hi[2], mid[2],
-               lo[2]);
-        split3(*reinterpret_cast<const float2*>(hp + 8 * HS + 8), hi[3],
-               mid[3], lo[3]);
-#pragma unroll
-        for (int j = 0; j < T::NJ; j += 2) {
-          uint32_t b[4];
-          ldsm_x4_t(b, ws + (kk + lrow) * WS + ncol + 8 * j + lcol);
-          mma_bf16(acc[0][j], lo, b[0], b[1]);
-          mma_bf16(acc[0][j], mid, b[0], b[1]);
-          mma_bf16(acc[0][j], hi, b[0], b[1]);
-          mma_bf16(acc[0][j + 1], lo, b[2], b[3]);
-          mma_bf16(acc[0][j + 1], mid, b[2], b[3]);
-          mma_bf16(acc[0][j + 1], hi, b[2], b[3]);
-        }
-      }
-      if (s2 % nk2 == nk2 - 1) {              // the output tile is done
-        const int d0 = (s2 / nk2) * BN;
-#pragma unroll
-        for (int j = 0; j < T::NJ; ++j) {
-          const int n = d0 + ncol + 8 * j + 2 * tig;
-          if (n < D) {
-            if constexpr (SPLIT) {
-              const bool first = ti == 0, last = ti == ntiles - 1;
-              if (r0 < tl.rows)
-                split_store(wsum, out, (size_t)r0 * D + n, acc[0][j][0],
-                            acc[0][j][1], first, last);
-              if (r0 + 8 < tl.rows)
-                split_store(wsum, out, (size_t)(r0 + 8) * D + n, acc[0][j][2],
-                            acc[0][j][3], first, last);
-            } else {
-              if (r0 < tl.rows)
-                *reinterpret_cast<__nv_bfloat162*>(out + (size_t)r0 * D + n) =
-                    __floats2bfloat162_rn(acc[0][j][0], acc[0][j][1]);
-              if (r0 + 8 < tl.rows)
-                *reinterpret_cast<__nv_bfloat162*>(out +
-                                                   (size_t)(r0 + 8) * D + n) =
-                    __floats2bfloat162_rn(acc[0][j][2], acc[0][j][3]);
-            }
-          }
-#pragma unroll
-          for (int q = 0; q < 4; ++q) acc[0][j][q] = 0.f;
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
-}
-
-// ---------------------------------------------------------------------------
-// f32: exact FMAs
-// ---------------------------------------------------------------------------
 
 constexpr int BC32 = 16;        // rows per block
 constexpr int HPAD32 = 4;       // f32 row padding of h
@@ -432,13 +150,12 @@ __global__ void __launch_bounds__(NT) moe_mlp_f32_kernel(const Params p) {
 
   const int t = threadIdx.x, tx = t % BN, ty = t / BN;
   const Tile tl = tile_of(p, BC32);
-  const float* x =
-      static_cast<const float*>(p.x) + ((size_t)tl.ge * p.c + tl.c0) * D;
+  const float* x = p.x + ((size_t)tl.ge * p.c + tl.c0) * D;
   const size_t wsz = (size_t)D * F;
-  const float* wi = static_cast<const float*>(p.wi) + tl.ex * wsz;
-  const float* wg = static_cast<const float*>(p.wg) + tl.ex * wsz;
-  const float* wo = static_cast<const float*>(p.wo) + tl.ex * wsz;
-  float* out = static_cast<float*>(p.out) + ((size_t)tl.ge * p.c + tl.c0) * D;
+  const float* wi = p.wi + tl.ex * wsz;
+  const float* wg = p.wg + tl.ex * wsz;
+  const float* wo = p.wo + tl.ex * wsz;
+  float* out = p.out + ((size_t)tl.ge * p.c + tl.c0) * D;
   float* wsum = SPLIT ? p.ws + ((size_t)tl.ge * p.c + tl.c0) * D : nullptr;
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
 
@@ -538,30 +255,355 @@ cudaError_t launch(K kernel, const Params& p, int bc, size_t smem,
   return cudaGetLastError();
 }
 
-}  // namespace
 
-// The shared memory a block needs (bytes) when it holds h for ft columns
-// of d_ff, so that the wrapper can choose the schedule: one pass when
-// ft = f fits, else the split schedule.  dtype: 0 = float32, 1 = bfloat16.
-extern "C" long long moe_mlp_smem_bytes(int dtype, int c, int ft) {
-  if (dtype == 0) return static_cast<long long>(smem_f32(ft));
-  return static_cast<long long>(c <= 16 ? smem_bf16<16, 2>(ft)
-                                        : smem_bf16<32, 4>(ft));
+}  // namespace exact
+
+// ---------------------------------------------------------------------------
+// bf16: two wgmma GEMMs, fed by producer warps through an mbarrier ring
+// ---------------------------------------------------------------------------
+
+namespace tensor {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int BK = 64;                      // reduction depth of a k-step
+constexpr int CONSUMER_WARPS = 8;           // two warpgroups
+constexpr int PRODUCER_WARPS = 4;
+constexpr int NT = 32 * (CONSUMER_WARPS + PRODUCER_WARPS);
+constexpr int PT = 32 * PRODUCER_WARPS;     // producer threads
+constexpr int SMEM_LIMIT = 232448;          // a block's shared memory
+constexpr int B_BLOCK = 64 * 128;           // one 64-wide column block of a
+                                            // B tile (64 k rows), bytes
+constexpr int NS = 3;                       // bf16 parts of h: three hold
+                                            // every f32 exactly
+
+struct Params {
+  const bf16* x;
+  const bf16* wi;
+  const bf16* wg;
+  const bf16* wo;
+  bf16* out;
+  bf16* h;        // (NS, E, G C, F): h in NS bf16 parts
+  int g, e, c, d, f;
+  int m;          // rows of an expert: G C
+};
+
+// A block owns BM rows of one expert and BN columns (d_ff in the up
+// GEMM, D in the down GEMM); warpgroup w takes all BM rows and columns
+// 128 w .. 128 w + 127 (of wi and of wg in the up GEMM).  (Tiles of 128
+// rows, one warpgroup per 64, pad more rows at olmoe's capacities (320
+// rows take 384) and were no faster at any shape measured.)
+constexpr int BM = 64;
+constexpr int BN = 256;
+constexpr uint32_t A_BYTES = BM * 128;      // an A tile: BM rows x BK
+constexpr uint32_t B_BYTES = BK * BN * 2;   // a B tile: BK rows x BN
+
+// Stages of a ring of `stage` bytes that fit a block's shared memory
+// (1024 bytes kept for aligning the tiles), at most 4.
+constexpr int stages_for(uint32_t stage) {
+  return (SMEM_LIMIT - 1024) / stage < 4 ? (SMEM_LIMIT - 1024) / stage : 4;
 }
 
-// x (g e, c, d), wi/wg (e, d, f), wo (e, f, d), out (g e, c, d); all
-// contiguous, one dtype (0 = float32, 1 = bfloat16).  Needs d % 32 == 0
-// and f % 128 == 0.  ft == f runs the one-pass schedule; a proper divisor
-// ft of f (a multiple of 128) runs the split schedule, which needs ws, an
-// f32 (g e, c, d) workspace.  `device` is the index of the card the
-// tensors and `stream` belong to (this library links its own CUDA
-// runtime, whose current device is not the caller's).  Returns the CUDA
-// error of the launch (0 = cudaSuccess); the launch is asynchronous on
-// `stream` and allocates nothing.
-extern "C" int moe_mlp_fwd(const void* x, const void* wi, const void* wg,
-                           const void* wo, void* out, float* ws, int dtype,
-                           int g, int e, int c, int d, int f, int ft,
-                           int device, void* stream) {
+// The x rows of expert ex that producer thread pl copies into an up
+// tile: rows pl / 8 + (PT / 8) i of the tile, as element offsets of x
+// ((g E + ex) C + c) D for row m = (g, c), or -1 past the expert's rows.
+struct XRows {
+  static constexpr int N = BM * 8 / PT;
+  long long off[N];
+};
+
+// The up kernel's A tile (K-major): BM rows x 64 values of x from k0,
+// values past D zero.
+__device__ __forceinline__ void load_x(uint32_t dst, const bf16* x,
+                                       const XRows& rows, int k0, int D,
+                                       int pl) {
+  const int c8 = pl & 7, r0 = pl >> 3, k = k0 + 8 * c8;
+#pragma unroll
+  for (int i = 0; i < XRows::N; ++i) {
+    const bool ok = k < D && rows.off[i] >= 0;
+    sm90::cp_async16(dst + sm90::sw128(r0 + (PT / 8) * i, c8),
+                     ok ? x + rows.off[i] + k : x, ok);
+  }
+}
+
+// The shared memory of a block, its ring and barriers.  The producers
+// fill stage s and arrive on full[s] as their copies land; each consumer
+// warp arrives on empty[s] once its products have read the stage.
+template <int STAGES>
+struct Ring {
+  uint32_t base;  // 1024-aligned shared address of stage 0
+  uint64_t* full;
+  uint64_t* empty;
+};
+
+template <int STAGES>
+__device__ __forceinline__ Ring<STAGES> ring_setup(unsigned char* raw,
+                                                   uint64_t* bars) {
+  Ring<STAGES> r{(sm90::smem_u32(raw) + 1023) & ~1023u, bars, bars + STAGES};
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(&r.full[s], PT);
+      sm90::mbar_init(&r.empty[s], CONSUMER_WARPS);
+    }
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+  return r;
+}
+
+// Consumer side of k-step kt: wait for its stage (returned), then
+// stage_release after the products are queued.
+template <int STAGES>
+__device__ __forceinline__ uint32_t stage_wait(const Ring<STAGES>& r, int kt,
+                                               uint32_t stage_bytes) {
+  const int s = kt % STAGES;
+  sm90::mbar_wait(&r.full[s], (kt / STAGES) & 1);
+  sm90::fence_proxy_async();
+  return r.base + s * stage_bytes;
+}
+
+// Commit k-step kt's products, wait for k-step kt - 1's (one group stays
+// in flight) and release its stage.
+template <int STAGES>
+__device__ __forceinline__ void stage_release(const Ring<STAGES>& r, int kt) {
+  sm90::wgmma_commit();
+  sm90::wgmma_wait<1>();
+  if (kt > 0 && (threadIdx.x & 31) == 0)
+    sm90::mbar_arrive(&r.empty[(kt - 1) % STAGES]);
+}
+
+// Producer side of k-step kt: wait until the stage is free, `load` it,
+// and arrive on its full barrier as the copies land.
+template <int STAGES, typename Load>
+__device__ __forceinline__ void produce(const Ring<STAGES>& r, int kt,
+                                        uint32_t stage_bytes, Load load) {
+  const int s = kt % STAGES;
+  if (kt >= STAGES) sm90::mbar_wait(&r.empty[s], (kt / STAGES - 1) & 1);
+  load(r.base + s * stage_bytes);
+  sm90::cp_async_mbar_arrive(&r.full[s]);
+}
+
+// ---- up: h = silu(x wi) * (x wg), split into NS bf16 parts ---------------
+
+struct Up {
+  static constexpr uint32_t STAGE = A_BYTES + 2 * B_BYTES;
+  static constexpr int STAGES = stages_for(STAGE);
+  static constexpr size_t SMEM = 1024 + (size_t)STAGES * STAGE;
+  static_assert(STAGES >= 2 && SMEM + 16 * STAGES <= SMEM_LIMIT,
+                "shared memory");
+};
+
+__global__ void __launch_bounds__(NT, 1) moe_mlp_up_kernel(const Params p) {
+  using U = Up;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2 * U::STAGES];
+  const Ring<U::STAGES> ring = ring_setup<U::STAGES>(smem_raw, bars);
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN, ex = blockIdx.z;
+  const int warp = threadIdx.x >> 5, nk = (p.d + BK - 1) / BK;
+
+  if (warp >= CONSUMER_WARPS) {
+    // ---- producers: x rows of expert ex, wi and wg columns n0.. -------
+    const int pl = threadIdx.x - 32 * CONSUMER_WARPS;
+    XRows rows;
+#pragma unroll
+    for (int i = 0; i < XRows::N; ++i) {
+      const int m = m0 + (pl >> 3) + (PT / 8) * i;
+      rows.off[i] = m < p.m ? ((long long)(m / p.c) * p.e * p.c + ex * p.c +
+                               m % p.c) * p.d
+                            : -1;
+    }
+    const size_t wsz = (size_t)p.d * p.f;
+    const bf16* wi = p.wi + ex * wsz;
+    const bf16* wg = p.wg + ex * wsz;
+    for (int kt = 0; kt < nk; ++kt)
+      produce(ring, kt, U::STAGE, [&](uint32_t st) {
+        load_x(st, p.x, rows, kt * BK, p.d, pl);
+        // warpgroup w's 128 columns of wi, then of wg: one 256-wide B
+#pragma unroll
+        for (int w = 0; w < 2; ++w) {
+          const uint32_t b = st + A_BYTES + 4 * w * B_BLOCK;
+          sm90::load_rows<BK, 16, PT, B_BLOCK>(b, wi, p.f, kt * BK, p.d,
+                                               n0 + 128 * w, p.f, pl);
+          sm90::load_rows<BK, 16, PT, B_BLOCK>(b + 2 * B_BLOCK, wg, p.f,
+                                               kt * BK, p.d, n0 + 128 * w,
+                                               p.f, pl);
+        }
+      });
+    sm90::cp_async_wait<0>();
+    return;
+  }
+
+  // ---- consumers ----------------------------------------------------------
+  const int wg = warp >> 2, col = 128 * wg;
+  // 64 x 256 f32: x wi in columns 0..127, x wg in 128..255; the first
+  // k-step overwrites it
+  float acc[128];
+  for (int kt = 0; kt < nk; ++kt) {
+    const uint32_t st = stage_wait(ring, kt, U::STAGE);
+    const uint32_t b = st + A_BYTES + 4 * wg * B_BLOCK;
+    sm90::fence_regs(acc);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < BK / 16; ++ks)
+      sm90::wgmma_m64n256k16_ss<1>(
+          acc, sm90::desc_sw128(st + 32 * ks, 16, 1024),
+          sm90::desc_sw128(b + 2048 * ks, B_BLOCK, 1024), kt > 0 || ks > 0);
+    stage_release(ring, kt);
+    sm90::fence_regs(acc);
+  }
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(acc);
+
+  // epilogue: h in f32, stored as NS bf16 parts
+  const int lane = threadIdx.x & 31;
+  const int ma = m0 + (warp & 3) * 16 + (lane >> 2), mb = ma + 8;
+  const size_t part = (size_t)p.e * p.m * p.f;
+  bf16* ha = p.h + ((size_t)ex * p.m + ma) * p.f;
+  bf16* hb = ha + (size_t)8 * p.f;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int n = n0 + col + 8 * i + 2 * (lane & 3);
+    if (n >= p.f) continue;
+    uint32_t pa[NS], pb[NS];
+    const int j = 4 * i, k = 64 + 4 * i;  // x wi, x wg
+    sm90::split_bf16<NS>(silu(acc[j]) * acc[k], silu(acc[j + 1]) * acc[k + 1],
+                         pa);
+    sm90::split_bf16<NS>(silu(acc[j + 2]) * acc[k + 2],
+                         silu(acc[j + 3]) * acc[k + 3], pb);
+#pragma unroll
+    for (int q = 0; q < NS; ++q) {
+      if (ma < p.m) *reinterpret_cast<uint32_t*>(ha + q * part + n) = pa[q];
+      if (mb < p.m) *reinterpret_cast<uint32_t*>(hb + q * part + n) = pb[q];
+    }
+  }
+}
+
+// ---- down: out = sum over the parts of h_part wo -------------------------
+
+struct Down {
+  static constexpr uint32_t STAGE = NS * A_BYTES + B_BYTES;
+  static constexpr int STAGES = stages_for(STAGE);
+  static constexpr size_t SMEM = 1024 + (size_t)STAGES * STAGE;
+  static_assert(STAGES >= 2 && SMEM + 16 * STAGES <= SMEM_LIMIT,
+                "shared memory");
+};
+
+__global__ void __launch_bounds__(NT, 1) moe_mlp_down_kernel(const Params p) {
+  using U = Down;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2 * U::STAGES];
+  const Ring<U::STAGES> ring = ring_setup<U::STAGES>(smem_raw, bars);
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN, ex = blockIdx.z;
+  const int warp = threadIdx.x >> 5, nk = p.f / BK;
+  const size_t part = (size_t)p.e * p.m * p.f;
+
+  if (warp >= CONSUMER_WARPS) {
+    // ---- producers: the NS parts of h's rows, wo columns n0.. ---------
+    const int pl = threadIdx.x - 32 * CONSUMER_WARPS;
+    const bf16* h = p.h + (size_t)ex * p.m * p.f;
+    const bf16* wo = p.wo + (size_t)ex * p.f * p.d;
+    for (int kt = 0; kt < nk; ++kt)
+      produce(ring, kt, U::STAGE, [&](uint32_t st) {
+#pragma unroll
+        for (int q = 0; q < NS; ++q)
+          sm90::load_rows<BM, 8, PT, 0>(st + q * A_BYTES, h + q * part,
+                                        p.f, m0, p.m, kt * BK, p.f, pl);
+        sm90::load_rows<BK, BN / 8, PT, B_BLOCK>(
+            st + NS * A_BYTES, wo, p.d, kt * BK, p.f, n0, p.d, pl);
+      });
+    sm90::cp_async_wait<0>();
+    return;
+  }
+
+  // ---- consumers ----------------------------------------------------------
+  const int wg = warp >> 2, col = 128 * wg;
+  float acc[64];  // 64 x 128 f32; the first k-step overwrites it
+  for (int kt = 0; kt < nk; ++kt) {
+    const uint32_t st = stage_wait(ring, kt, U::STAGE);
+    const uint32_t b = st + NS * A_BYTES + (col / 64) * B_BLOCK;
+    sm90::fence_regs(acc);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < BK / 16; ++ks) {
+      const uint64_t db = sm90::desc_sw128(b + 2048 * ks, B_BLOCK, 1024);
+#pragma unroll
+      for (int q = NS - 1; q >= 0; --q)  // the smallest part first
+        sm90::wgmma_m64n128k16_ss<1>(
+            acc,
+            sm90::desc_sw128(st + q * A_BYTES + 32 * ks, 16,
+                             1024),
+            db, kt > 0 || ks > 0 || q < NS - 1);
+    }
+    stage_release(ring, kt);
+    sm90::fence_regs(acc);
+  }
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(acc);
+
+  // epilogue: the output rounded once, row m = (g, c) of expert ex
+  const int lane = threadIdx.x & 31;
+  const int ma = m0 + (warp & 3) * 16 + (lane >> 2), mb = ma + 8;
+  bf16* oa = p.out + (((size_t)(ma / p.c) * p.e + ex) * p.c + ma % p.c) * p.d;
+  bf16* ob = p.out + (((size_t)(mb / p.c) * p.e + ex) * p.c + mb % p.c) * p.d;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int n = n0 + col + 8 * i + 2 * (lane & 3);
+    if (n >= p.d) continue;
+    if (ma < p.m)
+      *reinterpret_cast<uint32_t*>(oa + n) =
+          sm90::pack_bf16(acc[4 * i], acc[4 * i + 1]);
+    if (mb < p.m)
+      *reinterpret_cast<uint32_t*>(ob + n) =
+          sm90::pack_bf16(acc[4 * i + 2], acc[4 * i + 3]);
+  }
+}
+
+template <typename K>
+cudaError_t launch(K kernel, dim3 grid, size_t smem, const Params& p,
+                   cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, NT, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+cudaError_t run(const Params& p, cudaStream_t stream) {
+  const unsigned mt = (p.m + BM - 1) / BM;
+  cudaError_t err = launch(moe_mlp_up_kernel,
+                           dim3(mt, (p.f + BN - 1) / BN, p.e), Up::SMEM, p,
+                           stream);
+  if (err != cudaSuccess) return err;
+  return launch(moe_mlp_down_kernel, dim3(mt, (p.d + BN - 1) / BN, p.e),
+                Down::SMEM, p, stream);
+}
+
+}  // namespace tensor
+
+}  // namespace
+
+// The shared memory an f32 block needs (bytes) when it holds h for ft
+// columns of d_ff, so that the wrapper can choose the schedule: one pass
+// when ft = f fits, else the split schedule.
+extern "C" long long moe_mlp_f32_smem_bytes(int ft) {
+  return static_cast<long long>(exact::smem_f32(ft));
+}
+
+// f32: x (g e, c, d), wi/wg (e, d, f), wo (e, f, d), out (g e, c, d); all
+// contiguous.  Needs d % 32 == 0 and f % 128 == 0.  ft == f runs the
+// one-pass schedule; a proper divisor ft of f (a multiple of 128) runs
+// the split schedule, which needs ws, an f32 (g e, c, d) workspace.
+// `device` is the index of the card the tensors and `stream` belong to
+// (this library links its own CUDA runtime, whose current device is not
+// the caller's).  Returns the CUDA error of the launch (0 = cudaSuccess);
+// the launch is asynchronous on `stream` and allocates nothing.
+extern "C" int moe_mlp_f32_fwd(const float* x, const float* wi,
+                               const float* wg, const float* wo, float* out,
+                               float* ws, int g, int e, int c, int d, int f,
+                               int ft, int device, void* stream) {
+  using namespace exact;
   const bool split = ft != f;
   if (g < 1 || e < 1 || c < 1 || d < BK || f < BN || d % BK != 0 ||
       f % BN != 0 || ft < BN || ft % BN != 0 || f % ft != 0 ||
@@ -572,25 +614,36 @@ extern "C" int moe_mlp_fwd(const void* x, const void* wi, const void* wg,
   if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
   const Params p{x, wi, wg, wo, out, ws, g, e, c, d, f, ft};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = static_cast<size_t>(moe_mlp_smem_bytes(dtype, c, ft));
-  cudaError_t err = cudaErrorInvalidValue;
-  switch (dtype) {
-    case 0:
-      err = split ? launch(moe_mlp_f32_kernel<true>, p, BC32, smem, st)
-                  : launch(moe_mlp_f32_kernel<false>, p, BC32, smem, st);
-      break;
-    case 1:
-      if (c <= 16)
-        err = split
-                  ? launch(moe_mlp_bf16_kernel<16, 2, 2, true>, p, 16, smem, st)
-                  : launch(moe_mlp_bf16_kernel<16, 2, 2, false>, p, 16, smem,
-                           st);
-      else
-        err = split
-                  ? launch(moe_mlp_bf16_kernel<32, 4, 1, true>, p, 32, smem, st)
-                  : launch(moe_mlp_bf16_kernel<32, 4, 1, false>, p, 32, smem,
-                           st);
-      break;
-  }
+  const size_t smem = smem_f32(ft);
+  const cudaError_t err =
+      split ? launch(moe_mlp_f32_kernel<true>, p, BC32, smem, st)
+            : launch(moe_mlp_f32_kernel<false>, p, BC32, smem, st);
   return static_cast<int>(err);
+}
+
+// bf16: x (g, e, c, d), wi/wg (e, d, f), wo (e, f, d), out (g, e, c, d);
+// all contiguous, 16-byte aligned.  h is a bf16 workspace of
+// 3 * e * (g c) * f values (h in three bf16 parts), written by the up
+// kernel and read by the down kernel.  Needs d % 8 == 0 and f % 64 == 0.
+// Launches the two kernels on `stream`; returns the first CUDA error
+// (0 = cudaSuccess).
+extern "C" int moe_mlp_bf16_fwd(const void* x, const void* wi, const void* wg,
+                                const void* wo, void* out, void* h, int g,
+                                int e, int c, int d, int f, int device,
+                                void* stream) {
+  using namespace tensor;
+  const long long m = (long long)g * c;
+  if (g < 1 || e < 1 || c < 1 || d < 8 || f < 64 || d % 8 != 0 ||
+      f % 64 != 0 || e > 65535 || m > 0x7fffffffLL || h == nullptr ||
+      f / BN + 1 > 65535 ||
+      d / BN + 1 > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t dev_err = cudaSetDevice(device);
+  if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
+  const Params p{static_cast<const bf16*>(x), static_cast<const bf16*>(wi),
+                 static_cast<const bf16*>(wg), static_cast<const bf16*>(wo),
+                 static_cast<bf16*>(out), static_cast<bf16*>(h), g, e, c, d,
+                 f, static_cast<int>(m)};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(run(p, st));
 }

@@ -17,8 +17,10 @@ def load() -> ctypes.CDLL:
     """The bound library, built first if needed (once per process)."""
     lib = build.load(SOURCE)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.moe_mlp_fwd.argtypes = [ptr] * 6 + [i32] * 8 + [ptr]
-    lib.moe_mlp_fwd.restype = i32
-    lib.moe_mlp_smem_bytes.argtypes = [i32] * 3
-    lib.moe_mlp_smem_bytes.restype = ctypes.c_longlong
+    lib.moe_mlp_f32_fwd.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
+    lib.moe_mlp_f32_fwd.restype = i32
+    lib.moe_mlp_f32_smem_bytes.argtypes = [i32]
+    lib.moe_mlp_f32_smem_bytes.restype = ctypes.c_longlong
+    lib.moe_mlp_bf16_fwd.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
+    lib.moe_mlp_bf16_fwd.restype = i32
     return lib

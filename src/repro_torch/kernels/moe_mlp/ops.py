@@ -7,9 +7,12 @@ hand-written kernel (``csrc/moe_mlp.cu``) or raises; it takes the plain
 version only for tensors on the CPU.  ``expert_mlp.launches`` counts
 kernel launches.
 
-The shape alone picks the kernel's schedule: one pass over d_ff when h
-for all of it fits a block's shared memory, else d_ff in tiles of
-``split_tile(F)`` columns whose outputs are summed in an f32 workspace.
+The dtype and the shape alone pick the kernel's schedule.  bf16: two
+GEMMs per expert on the tensor cores, h carried between them in three
+bf16 parts in a workspace (three hold each f32 exactly).  f32: one pass
+over d_ff when h for all of it fits a block's shared memory, else d_ff in
+tiles of ``split_tile(F)`` columns whose outputs are summed in an f32
+workspace.
 """
 
 from __future__ import annotations
@@ -20,18 +23,17 @@ from repro_torch.kernels import refuse_autograd
 from repro_torch.kernels.moe_mlp import kernel
 from repro_torch.kernels.moe_mlp.ref import expert_mlp_plain
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 _MAX_GRID_Y = 65535
 # shared memory one block may use on Hopper (227 KB), cudaFuncSetAttribute
 MAX_SMEM_BYTES = 232448
-# the widest d_ff tile of the split schedule: h for 1024 columns takes
-# 129 KB of a block's shared memory at 32 rows in bf16
+# the widest d_ff tile of the f32 split schedule
 MAX_F_TILE = 1024
 
 
 def split_tile(f: int) -> int:
-    """The d_ff tile of the split schedule: the largest multiple of 128
-    that divides ``f`` and is at most ``MAX_F_TILE``."""
+    """The d_ff tile of the f32 split schedule: the largest multiple of
+    128 that divides ``f`` and is at most ``MAX_F_TILE``."""
     m = f // 128
     return 128 * max(q for q in range(1, MAX_F_TILE // 128 + 1) if m % q == 0)
 
@@ -47,7 +49,7 @@ def _check(x, wi, wg, wo) -> None:
         raise ValueError(f"weights {tuple(wi.shape)}, {tuple(wg.shape)}, "
                          f"{tuple(wo.shape)} do not fit x {tuple(x.shape)}")
     if (len({t.dtype for t in (x, wi, wg, wo)}) != 1
-            or x.dtype not in _DTYPE_CODE):
+            or x.dtype not in _DTYPES):
         raise TypeError(f"want float32 or bfloat16 for all of x/wi/wg/wo, "
                         f"got {x.dtype}, {wi.dtype}, {wg.dtype}, {wo.dtype}")
     if len({t.device for t in (x, wi, wg, wo)}) != 1:
@@ -70,26 +72,49 @@ def expert_mlp(x: torch.Tensor, wi: torch.Tensor, wg: torch.Tensor,
                          f"got D={d}, F={f}")
     if e > _MAX_GRID_Y:
         raise ValueError(f"E = {e} exceeds the grid ({_MAX_GRID_Y})")
-    lib = kernel.load()
-    code = _DTYPE_CODE[x.dtype]
-    # the d_ff columns a block holds as h at a time
-    ft = (f if lib.moe_mlp_smem_bytes(code, c, f) <= MAX_SMEM_BYTES
-          else split_tile(f))
     x, wi, wg, wo = (t.contiguous() for t in (x, wi, wg, wo))
     if any(t.data_ptr() % 16 for t in (x, wi, wg, wo)):
         raise ValueError("the kernel loads 16-byte vectors: x and the "
                          "weights must start on a 16-byte boundary")
+    if x.dtype == torch.bfloat16:
+        out = _launch_bf16(x, wi, wg, wo)
+    else:
+        out = _launch_f32(x, wi, wg, wo)
+    expert_mlp.launches += 1
+    return out
+
+
+def _launch_bf16(x, wi, wg, wo) -> torch.Tensor:
+    g, e, c, d = x.shape
+    f = wi.shape[2]
     out = torch.empty_like(x)
-    ws = (torch.empty(x.shape, dtype=torch.float32, device=x.device)
-          if ft < f else None)
-    err = lib.moe_mlp_fwd(
+    # h in three bf16 parts, written by the up GEMM, read by the down GEMM
+    h = torch.empty((3, e, g * c, f), dtype=x.dtype, device=x.device)
+    err = kernel.load().moe_mlp_bf16_fwd(
         x.data_ptr(), wi.data_ptr(), wg.data_ptr(), wo.data_ptr(),
-        out.data_ptr(), None if ws is None else ws.data_ptr(), code, g, e, c,
-        d, f, ft, x.device.index,
+        out.data_ptr(), h.data_ptr(), g, e, c, d, f, x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"moe_mlp kernel launch failed: CUDA error {err}")
-    expert_mlp.launches += 1
+    return out
+
+
+def _launch_f32(x, wi, wg, wo) -> torch.Tensor:
+    g, e, c, d = x.shape
+    f = wi.shape[2]
+    lib = kernel.load()
+    # the d_ff columns a block holds as h at a time
+    ft = (f if lib.moe_mlp_f32_smem_bytes(f) <= MAX_SMEM_BYTES
+          else split_tile(f))
+    out = torch.empty_like(x)
+    ws = (torch.empty(x.shape, dtype=torch.float32, device=x.device)
+          if ft < f else None)
+    err = lib.moe_mlp_f32_fwd(
+        x.data_ptr(), wi.data_ptr(), wg.data_ptr(), wo.data_ptr(),
+        out.data_ptr(), None if ws is None else ws.data_ptr(), g, e, c, d, f,
+        ft, x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"moe_mlp kernel launch failed: CUDA error {err}")
     return out
 
 

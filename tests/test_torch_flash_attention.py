@@ -96,3 +96,39 @@ def test_flash_attention_rejects_bad_inputs():
     with pytest.raises(TypeError):
         ops.flash_attention(q.half(), q.half(), q.half())
 
+
+@pytest.mark.parametrize("causal,window,s,s_kv,refused", [
+    (True, 8, 40, 10, True), (True, 8, 18, 10, True),
+    (True, 8, 17, 10, False), (True, 0, 40, 10, False),
+    (False, 8, 40, 10, False), (True, 8, 40, 40, False)])
+def test_flash_attention_refuses_rows_without_keys(causal, window, s, s_kv,
+                                                   refused):
+    """Causal with a window, query row i sees keys (i - window, i]: rows
+    from s_kv + window - 1 on see none, where the plain version averages
+    v over masked keys and the TPU kernel writes 0.  Such inputs are
+    refused on every device; all others pass."""
+    q = torch.randn(1, s, 2, 16)
+    k = v = torch.randn(1, s_kv, 2, 16)
+    if refused:
+        with pytest.raises(ValueError, match="without a visible key"):
+            ops.flash_attention(q, k, v, causal=causal, window=window)
+    else:
+        got = ops.flash_attention(q, k, v, causal=causal, window=window)
+        assert got.shape == q.shape and bool(torch.isfinite(got).all())
+
+
+def test_bf16_staging_check():
+    """The bf16 kernel copies 16 bytes at a time: q, k and v slices of a
+    fused projection pass; a base or a stride off the 8-value grid is
+    refused with a ValueError that names it."""
+    qkv = torch.zeros(2, 96, 12, 64, dtype=torch.bfloat16)
+    ops.check_staging(*qkv.split(4, dim=2))
+    odd_base = torch.zeros(2 * 96 * 4 * 64 + 1, dtype=torch.bfloat16)[1:]
+    odd_base = odd_base.view(2, 96, 4, 64)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        ops.check_staging(qkv[:, :, :4], odd_base, odd_base)
+    padded = torch.zeros(2, 96, 4, 72, dtype=torch.bfloat16)[..., :64]
+    ops.check_staging(padded, padded, padded)
+    odd_stride = torch.zeros(2, 96, 4, 68, dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ops.check_staging(odd_stride, odd_stride, odd_stride)

@@ -33,7 +33,17 @@ CASES = [(2, 256, 4, 4, 64, 0), (1, 512, 2, 2, 128, 0),
          (1, 1000, 2, 2, 32, 0), (1, 130, 32, 8, 128, 0),
          (2, 50, 4, 1, 16, 0), (1, 200, 2, 2, 64, 37),
          # stablelm-1.6b's heads at a ragged served length and at 2048
-         (1, 1762, 32, 32, 64, 0), (1, 2048, 32, 32, 64, 0)]
+         (1, 1762, 32, 32, 64, 0), (1, 2048, 32, 32, 64, 0),
+         # s on both sides of the bf16 kernel's 128-row q and KV tiles
+         (1, 127, 4, 4, 64, 0), (1, 128, 4, 2, 64, 0), (1, 129, 4, 4, 64, 0),
+         (2, 191, 4, 2, 64, 0), (1, 255, 4, 4, 128, 0), (1, 257, 4, 4, 64, 0),
+         # windows that end inside a KV tile
+         (1, 513, 4, 2, 64, 200), (1, 300, 2, 2, 128, 100),
+         # olmoe-1b-7b's heads at its longest profiled prompt and at 2048
+         (1, 1953, 16, 16, 128, 0), (1, 2048, 16, 16, 128, 0),
+         # GQA 32/8 at d=128 across a tile edge, d=16 and d=32
+         (1, 257, 32, 8, 128, 0), (1, 257, 4, 2, 16, 0),
+         (2, 129, 4, 4, 32, 0), (1, 300, 4, 1, 16, 64)]
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
@@ -78,6 +88,61 @@ def test_flash_attention_kernel_not_causal(card, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,s_kv", [(127, 129), (129, 127), (128, 255),
+                                    (191, 257), (257, 128), (1, 200)])
+def test_flash_attention_kernel_tile_edges(card, s, s_kv, dtype):
+    """s and s_kv on both sides of the 128-row tiles, with s_kv != s,
+    causal and not."""
+    gen = torch.Generator(device=card).manual_seed(s * 1000 + s_kv)
+    q = torch.randn(1, s, 4, 64, generator=gen, device=card).to(dtype)
+    k = torch.randn(1, s_kv, 2, 64, generator=gen, device=card).to(dtype)
+    v = torch.randn(1, s_kv, 2, 64, generator=gen, device=card).to(dtype)
+    for causal in (False, True):
+        got = ops.flash_attention(q, k, v, causal=causal)
+        want = ops.flash_attention_plain(q, k, v, causal=causal)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_window_past_s_kv(card, dtype):
+    """Causal with a window and s > s_kv.  Through the wrapper: s=160,
+    s_kv=130, window=32, where every row sees a key, against the plain
+    version; s=400, s_kv=100 refused.  The kernel itself at s=400, s_kv=100,
+    window=32 over 2 x 32 heads (more q tiles than blocks, so blocks take
+    a tile with no KV tile and then one with): rows with keys match the
+    plain version, the others are 0."""
+    gen = torch.Generator(device=card).manual_seed(7)
+
+    def qkv(b, s, s_kv, h, kvh, d):
+        return (torch.randn(b, s, h, d, generator=gen, device=card).to(dtype),
+                torch.randn(b, s_kv, kvh, d, generator=gen,
+                            device=card).to(dtype),
+                torch.randn(b, s_kv, kvh, d, generator=gen,
+                            device=card).to(dtype))
+
+    q, k, v = qkv(1, 160, 130, 4, 2, 64)
+    got = ops.flash_attention(q, k, v, causal=True, window=32)
+    want = ops.flash_attention_plain(q, k, v, causal=True, window=32)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+    for d in (64, 128):
+        q, k, v = qkv(2, 400, 100, 32, 8, d)
+        with pytest.raises(ValueError, match="without a visible key"):
+            ops.flash_attention(q, k, v, causal=True, window=32)
+        got = ops._launch(q, k, v, True, 32)
+        want = ops.flash_attention_plain(q, k, v, causal=True, window=32)
+        torch.cuda.synchronize()
+        seen = 100 + 32 - 1  # rows 0 .. 130 see a key
+        torch.testing.assert_close(got[:, :seen].float(),
+                                   want[:, :seen].float(),
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+        assert bool((got[:, seen:] == 0).all())
+
+
+@pytest.mark.gpu
 def test_flash_attention_kernel_strided_layout(card):
     """q/k/v as column slices of one fused qkv projection: the kernel
     reads them through their strides, without a copy."""
@@ -99,7 +164,13 @@ MOE_CASES = [(2, 4, 128, 64, 256), (1, 2, 64, 128, 512), (2, 2, 128, 32, 128),
              (1, 4, 1, 64, 256), (4, 4, 1, 32, 128), (1, 4, 25, 64, 256),
              (2, 3, 25, 128, 128), (1, 64, 25, 2048, 1024),
              (1, 64, 276, 2048, 1024), (1, 64, 320, 2048, 1024),
-             (4, 64, 1, 2048, 1024)]
+             (4, 64, 1, 2048, 1024),
+             # decode steps folded into one row tile per expert, at olmoe's
+             # widths and at a narrow one; G C = 65 and 129 cross the
+             # 64- and 128-row tiles
+             (8, 64, 1, 2048, 1024), (3, 64, 5, 2048, 1024),
+             (2, 64, 17, 2048, 1024), (8, 4, 1, 64, 256), (3, 4, 5, 64, 256),
+             (2, 4, 17, 64, 256), (5, 4, 13, 96, 384), (3, 2, 43, 32, 128)]
 MOE_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 
 
