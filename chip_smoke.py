@@ -84,11 +84,14 @@ limit, then the result line {"ok": true, "device": {...}} last.  Without a
 CUDA device, or without the repo's ``src/repro_torch`` beside it, it exits
 non-zero and prints no result.
 
-``--kernel-times`` runs only phases 1 and 2 for the flash_attention and
-moe_mlp kernels and their timings (phase 6's at stablelm's and olmoe's
-attention shapes, phase 8's at olmoe's prefill and decode, and at
-jamba's and mixtral's prefill, and the waves), then prints the times as
-one JSON line and the card's line, with no result line.  ``--src DIR``
+``--kernel-times`` runs only phases 1 and 2 for the flash_attention,
+moe_mlp and wkv6 kernels and their timings (phase 6's at stablelm's and
+olmoe's attention shapes; phase 8's at olmoe's prefill and decode, and at
+jamba's and mixtral's prefill, and the waves; wkv6 at rwkv6-7b's prefill
+shape and at each prompt length of the serve run, each checked once
+against its plain version, with its bound and share of the bound), then
+prints the times as one JSON line and the card's line, with no result
+line.  ``--src DIR``
 imports and builds ``repro_torch`` from DIR instead of this checkout's
 ``src``: run once per tree, in turns, to compare two trees (e.g. a
 parent commit unpacked with ``git archive``) on one card.
@@ -98,6 +101,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -228,15 +232,17 @@ def phase_build(build, mods) -> None:
                 print(f"  ptxas {path.name}: {line.strip()}")
 
 
-def kernel_times(torch, card: str, src: Path) -> None:
-    """--kernel-times: flash_attention and moe_mlp from ``src``, built and
-    timed at the main paths' shapes, each checked against its plain
-    version first."""
+def kernel_times(torch, np, card: str, src: Path, seed: int) -> None:
+    """--kernel-times: flash_attention, moe_mlp and wkv6 from ``src``,
+    built and timed at the main paths' shapes, each checked against its
+    plain version first."""
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import kernel, ops
     from repro_torch.kernels.moe_mlp import kernel as moe_kernel
     from repro_torch.kernels.moe_mlp import ops as moe_ops
-    phase_build(build, (kernel, moe_kernel))
+    from repro_torch.kernels.rwkv6_wkv import kernel as w_kernel
+    from repro_torch.kernels.rwkv6_wkv import ops as w_ops
+    phase_build(build, (kernel, moe_kernel, w_kernel))
     times = {f"{ARCH} attention": phase_timing(torch, ops, MAIN_SHAPE),
              f"{MOE_ARCH} attention": phase_timing(torch, ops,
                                                    MOE_ATTN_SHAPE)}
@@ -247,6 +253,12 @@ def kernel_times(torch, card: str, src: Path) -> None:
         times[label] = phase_moe_timing(torch, moe_ops, shape, label, card)
         torch.cuda.empty_cache()
     phase_moe_waves(torch, moe_ops, card)
+    from repro_torch.configs import get_config
+    lens = serve_lengths(np.random.default_rng(seed))
+    times[f"{RWKV_ARCH} wkv6"] = {
+        "prefill": phase_wkv_timing(torch, w_ops, None, card),
+        "lengths": phase_wkv_lengths(torch, w_ops, lens,
+                                     get_config(RWKV_ARCH).n_layers, card)}
     print(json.dumps({"src": str(src), "times": times}))
 
 
@@ -331,6 +343,11 @@ def phase_model(torch, np, cfg, model, params, seed: int, module, name: str,
     check(int(lk.argmax()) == int(lp.argmax()), "argmax differs")
 
 
+def serve_lengths(rng):
+    """The serve run's prompt lengths, the first draw of its generator."""
+    return rng.integers(128, 2049, SERVE_REQUESTS)
+
+
 def phase_serve(torch, np, cfg, model, params, counters, seed: int,
                 card: str):
     """The main path: every launch count set to 0 just before the serve
@@ -339,7 +356,7 @@ def phase_serve(torch, np, cfg, model, params, counters, seed: int,
     prefill and every decode step, a dense arch never."""
     from repro_torch.serve import BatchServer, Request
     rng = np.random.default_rng(seed)
-    lens = rng.integers(128, 2049, SERVE_REQUESTS)
+    lens = serve_lengths(rng)
     reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, int(n)),
                     max_new_tokens=SERVE_NEW) for i, n in enumerate(lens)]
     srv = BatchServer(model, params, slots=SERVE_SLOTS,
@@ -720,24 +737,37 @@ def _wkv_close(torch, got, want, dtype: str):
 def phase_wkv_sweep(torch, w_ops) -> None:
     """The wkv6 kernel against its plain version (the sequential
     recurrence), y and the final state, from a zero and from a random
-    state: WKV_SWEEP in f32 and bf16, then strong decay (w = 1e-3, within
-    1e-3 as tests/test_kernels.py) and slow decay (w0 = -6: decays of
-    ~0.9975 a step, so the carried state adds up over all 2048 tokens)."""
+    state, in f32 and bf16: WKV_SWEEP; slow decay (w0 = -6: decays of
+    ~0.9975 a step, so the carried state adds up over all 2048 tokens);
+    s on both sides of one and two sub-chunks and chunks of the bf16
+    kernel; strong decay
+    (w = 1e-3) over several chunks and sub-chunks.  Then strong decay from
+    a zero state within 1e-3, as tests/test_kernels.py."""
     gen = torch.Generator(device="cuda").manual_seed(10)
-    cases = [(c, dtype, (-6.0, 1.0)) for c in WKV_SWEEP
-             for dtype in (torch.float32, torch.bfloat16)]
-    cases += [((1, 2048, 4, 64, 32), torch.float32, (-6.0, -6.0))]
+    dtypes = (torch.float32, torch.bfloat16)
+    cases = [(c, dtype, (-6.0, 1.0)) for c in WKV_SWEEP for dtype in dtypes]
+    cases += [((1, 2048, 4, 64, 32), dtype, (-6.0, -6.0)) for dtype in dtypes]
+    # s = L - 1, L + 1 and 2 L + 1 for L = 16 (the bf16 kernel's sub-chunk)
+    # and 32 (its chunk)
+    cases += [((1, s, 2, 64, L), dtype, (-6.0, 1.0)) for L in (16, 32)
+              for s in (L - 1, L + 1, 2 * L + 1) for dtype in dtypes]
+    # strong decay, w = 1e-3 (lw ~ -6.9 a token): None below
+    cases += [((1, 200, 2, 64, L), dtype, None) for L in (16, 32)
+              for dtype in dtypes]
     for (b, s, h, n, chunk), dtype, w0 in cases:
         name = str(dtype).split(".")[-1]
         r, k, v, lw, u, state0 = _wkv_inputs(torch, gen, b, s, h, n, dtype,
-                                             *w0)
+                                             *(w0 or (-6.0, 1.0)))
+        if w0 is None:
+            lw = torch.full_like(lw, math.log(1e-3))
         for st0 in (None, state0):
             got = w_ops.wkv6_state(r, k, v, lw, u, st0, chunk=chunk)
             want = w_ops.wkv6_state_plain(r, k, v, lw, u, st0)
             torch.cuda.synchronize()
             ok, ey, es, rel = _wkv_close(torch, got, want, name)
-            case = (f"{name} b={b} s={s} h={h} n={n} chunk={chunk} w0 in "
-                    f"[{w0[0]}, {w0[1]}] state0="
+            decay = f"w0 in [{w0[0]}, {w0[1]}]" if w0 else "w=1e-3"
+            case = (f"{name} b={b} s={s} h={h} n={n} chunk={chunk} {decay} "
+                    f"state0="
                     f"{'zeros' if st0 is None else 'random'}")
             print(f"wkv6 sweep {case}: max_abs_err y={ey:.3e} (relative to "
                   f"1+|y|: {rel:.3e}) state={es:.3e} tol y={WKV_TOL[name]} "
@@ -817,10 +847,11 @@ def _wkv_bound(b: int, s: int, h: int, n: int, elem: int):
 
 
 def phase_wkv_timing(torch, w_ops, rw, card: str) -> dict:
-    """The kernel, its plain version (the sequential recurrence) and the
-    model's plain chunked scan at rwkv6-7b's prefill shape, bf16, the
-    model's chunk.  No single PyTorch call computes WKV6 (library:
-    none)."""
+    """The kernel at rwkv6-7b's prefill shape, bf16, the model's chunk,
+    checked against its plain version (the sequential recurrence) first;
+    with ``rw`` (the model's module) also the plain version and the
+    model's plain chunked scan timed.  No single PyTorch call computes
+    WKV6 (library: none)."""
     b, s, h, n = (RWKV_SHAPE[k] for k in "bshn")
     gen = torch.Generator(device="cuda").manual_seed(11)
     r, k, v, lw, u, _ = _wkv_inputs(torch, gen, b, s, h, n, torch.bfloat16)
@@ -829,18 +860,22 @@ def phase_wkv_timing(torch, w_ops, rw, card: str) -> dict:
     ok, err, err_st, rel = _wkv_close(torch, got, want, "bfloat16")
     check(ok, f"wkv6 main-shape kernel error {err} (state {err_st})")
     ms = cuda_ms(lambda: w_ops.wkv6_state(r, k, v, lw, u, chunk=RWKV_CHUNK))
-    plain_ms = cuda_ms(lambda: w_ops.wkv6_state_plain(r, k, v, lw, u),
-                       iters=3, warmup=1)
-    chunked_ms = cuda_ms(lambda: rw.wkv6_chunked_plain(r, k, v, lw, u, None,
-                                                       RWKV_CHUNK),
-                         iters=5, warmup=1)
+    plain_ms = chunked_ms = None
+    if rw is not None:
+        plain_ms = cuda_ms(lambda: w_ops.wkv6_state_plain(r, k, v, lw, u),
+                           iters=3, warmup=1)
+        chunked_ms = cuda_ms(lambda: rw.wkv6_chunked_plain(
+            r, k, v, lw, u, None, RWKV_CHUNK), iters=5, warmup=1)
     bound_ms, bound_by, nbytes, ops = _wkv_bound(b, s, h, n, r.element_size())
+    plain = ("" if rw is None else
+             f"plain (sequential) {plain_ms:.4f} ms, plain chunked scan "
+             f"{chunked_ms:.4f} ms, library none, ")
     print(f"wkv6 timing b={b} s={s} h={h} n={n} bf16 chunk={RWKV_CHUNK}: "
-          f"kernel {ms:.4f} ms, plain (sequential) {plain_ms:.4f} ms, plain "
-          f"chunked scan {chunked_ms:.4f} ms, library none, bound "
+          f"kernel {ms:.4f} ms, {plain}bound "
           f"{bound_ms:.4f} ms ({bound_by}: {ops / 1e9:.3f} G operations, "
-          f"{nbytes / 1e6:.2f} MB); kernel at {ops / ms / 1e9:.2f} TFLOP/s, "
-          f"{nbytes / ms / 1e9:.3f} TB/s, {ms / bound_ms:.2f}x the bound; "
+          f"{nbytes / 1e6:.2f} MB), share of the bound {bound_ms / ms:.4f}; "
+          f"kernel at {ops / ms / 1e9:.2f} TFLOP/s, "
+          f"{nbytes / ms / 1e9:.3f} TB/s; "
           f"max_abs_err y {err:.3e} (max |y| "
           f"{float(want[0].float().abs().max()):.1f}, relative to 1+|y| "
           f"{rel:.3e}), state {err_st:.3e} [{card}]")
@@ -850,24 +885,35 @@ def phase_wkv_timing(torch, w_ops, rw, card: str) -> dict:
                 shape=f"b={b} s={s} h={h} n={n} bf16 chunk={RWKV_CHUNK}")
 
 
-def phase_wkv_lengths(torch, w_ops, lens, n_layers: int, card: str) -> None:
-    """The kernel alone at rwkv6-7b's heads and each served prompt length:
-    what its launches (one per layer per request) cost in the serve run."""
+def phase_wkv_lengths(torch, w_ops, lens, n_layers: int, card: str) -> dict:
+    """The kernel alone at rwkv6-7b's heads and each served prompt length,
+    each checked once against its plain version: what its launches (one
+    per layer per request) cost in the serve run.  Returns the time of a
+    launch at each length and the serve run's total."""
     h, n = RWKV_SHAPE["h"], RWKV_SHAPE["n"]
     gen = torch.Generator(device="cuda").manual_seed(12)
-    per_req = []
-    for s in sorted(lens):
+    out = {}
+    for s in sorted(int(x) for x in lens):
         r, k, v, lw, u, _ = _wkv_inputs(torch, gen, 1, s, h, n,
                                         torch.bfloat16)
-        per_req.append(cuda_ms(lambda: w_ops.wkv6_state(
-            r, k, v, lw, u, chunk=RWKV_CHUNK)))
+        got = w_ops.wkv6_state(r, k, v, lw, u, chunk=RWKV_CHUNK)
+        ok, err, err_st, rel = _wkv_close(
+            torch, got, w_ops.wkv6_state_plain(r, k, v, lw, u), "bfloat16")
+        check(ok, f"wkv6 s={s}: error y {err} (relative {rel}) state "
+                  f"{err_st}")
+        ms = cuda_ms(lambda: w_ops.wkv6_state(r, k, v, lw, u,
+                                              chunk=RWKV_CHUNK))
         bound, _, _, _ = _wkv_bound(1, s, h, n, 2)
-        print(f"wkv6 lengths s={s}: kernel {per_req[-1]:.4f} ms per launch "
-              f"(bound {bound:.4f}), {per_req[-1] * n_layers:.3f} ms per "
-              f"prefill")
-    print(f"wkv6 lengths: kernel {sum(per_req) * n_layers:.3f} ms over the "
-          f"serve run's {len(per_req)} prefills ({n_layers} launches each) "
+        out[f"s={s}"] = ms
+        print(f"wkv6 lengths s={s}: kernel {ms:.4f} ms per launch (bound "
+              f"{bound:.4f}, share {bound / ms:.4f}), {ms * n_layers:.3f} ms "
+              f"per prefill; max_abs_err y {err:.3e} (relative to 1+|y| "
+              f"{rel:.3e}) state {err_st:.3e}")
+    out["serve run total ms"] = sum(out.values()) * n_layers
+    print(f"wkv6 lengths: kernel {out['serve run total ms']:.3f} ms over the "
+          f"serve run's {len(lens)} prefills ({n_layers} launches each) "
           f"[{card}]")
+    return out
 
 
 def phase_rwkv_train(torch, counters, seed: int, card: str) -> dict:
@@ -1198,7 +1244,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kernel-times", action="store_true",
-                    help="only build and time flash_attention and moe_mlp")
+                    help="only build and time the kernels")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the tree to import repro_torch from")
     args = ap.parse_args()
@@ -1219,8 +1265,9 @@ def main() -> int:
         card = card_line()
         print(f"card: {card}; torch {torch.__version__}, CUDA "
               f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+        import numpy as np
         with torch.no_grad():
-            kernel_times(torch, card, src)
+            kernel_times(torch, np, card, src, args.seed)
         print(card)
         return 0
     import gc

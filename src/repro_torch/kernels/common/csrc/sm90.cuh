@@ -1,16 +1,20 @@
 // Hopper (sm_90a) building blocks shared by the port's bf16 kernels:
-// flash_attention/csrc/flash_attention.cu and moe_mlp/csrc/moe_mlp.cu.
+// flash_attention/csrc/flash_attention.cu, moe_mlp/csrc/moe_mlp.cu and
+// rwkv6_wkv/csrc/wkv6.cu.
 //
 //  * cp.async staging: 16-byte copies from global to shared memory that
 //    zero-fill rows past a tensor's end, written into the 128-byte
 //    swizzled layout that wgmma reads (sw128);
 //  * mbarriers: a ring of stages in shared memory, filled by producer
 //    threads whose cp.async completions arrive on a "full" barrier
-//    (cp.async.mbarrier.arrive.noinc) and released by consumers on an
-//    "empty" barrier;
+//    (cp.async.mbarrier.arrive.noinc), or by asynchronous copies counted on
+//    it as transaction bytes after one arrival that expects them
+//    (mbar_arrive_expect_tx), and released by consumers on an "empty"
+//    barrier;
 //  * wgmma: shared-memory matrix descriptors for the 128-byte swizzle, the
 //    fence / commit / wait that bracket asynchronous warpgroup products,
-//    and the products both kernels issue (bf16 x bf16 -> f32);
+//    and the products flash_attention and moe_mlp issue (bf16 x bf16 ->
+//    f32);
 //  * the exact split of an f32 pair into bf16 parts.
 //
 // The 128-byte swizzle.  A tile with 64 bf16 values (128 bytes) per row is
@@ -117,6 +121,17 @@ __device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
                    smem_u32(bar))
                : "memory");
+}
+
+// One arrival on `bar` that also expects `bytes` more bytes of
+// asynchronous copies (complete_tx) before the phase can complete.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
 }
 
 // Wait for the phase of parity `parity` of `bar` to complete.  A wait

@@ -9,10 +9,13 @@ f32 initial state ``(b, h, n, n)``, and returns ``(y, final state)``.
 
 On a CUDA tensor they launch the hand-written kernel (``csrc/wkv6.cu``)
 or raise; they take the plain version (``wkv6_ref``, the sequential
-recurrence, which the kernel computes in the same order) only for
-tensors on the CPU.  ``chunk`` is the number of tokens the kernel stages
-at a time; the result does not depend on it.  ``wkv6.launches`` counts
-kernel launches of both.
+recurrence) only for tensors on the CPU.  In f32 the kernel runs that
+recurrence in the same order, and ``chunk`` is the number of tokens it
+stages at a time: the result does not depend on it.  In bf16 the kernel
+runs the chunked form on the tensor cores in chunks of 32 tokens and
+ignores ``chunk`` (``ref.wkv6_chunked_factorised`` is that factorisation
+in plain PyTorch, for the tests).  ``wkv6.launches`` counts kernel
+launches of both.
 """
 
 from __future__ import annotations
@@ -87,7 +90,12 @@ def wkv6_state(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"chunk {chunk}: the kernel stages 1 to "
                          f"{MAX_CHUNK} tokens at a time")
     lib = kernel.load()
-    r, k, v, lw = (t.contiguous() for t in (r, k, v, lw))
+    # the kernel's tensor-map copies need 16-byte aligned rows: a view may
+    # start anywhere
+    r, k, v, lw = (t.contiguous() if t.data_ptr() % 16 == 0 and
+                   t.is_contiguous() else t.clone(
+                       memory_format=torch.contiguous_format)
+                   for t in (r, k, v, lw))
     u = u.float().contiguous()
     if state0 is not None:
         state0 = state0.contiguous()

@@ -9,11 +9,15 @@ machine that has none:
 Tolerances are ``tests/test_kernels.py``'s: 2e-5 in f32 and 2e-2 in bf16
 for flash attention, 1e-4 and 3e-2 for the expert MLP, 5e-4 in f32 for
 WKV6 (1e-3 under strong decay).  The quantize kernel's q and scales
-equal its plain version's bit for bit.  WKV6 in bf16: the kernel and its
-plain version compute in f32 from the same bf16 inputs and differ only
-in the order of f32 sums; y is rounded once to bf16, so they may land a
-bf16 ulp apart, which is at most 2^-7 (7.8e-3) of |y|: 8e-3.
+equal its plain version's bit for bit.  WKV6 in bf16: the kernel (the
+chunked form, its f32 operands split into two bf16 parts) and its plain
+version (the recurrence in f32) differ in f32 by less than one bf16 ulp
+of y, and y is rounded once to bf16, so they may land a bf16 ulp apart,
+which is at most 2^-7 (7.8e-3) of |y|: 8e-3.  The final state is f32 in
+both: 5e-4.
 """
+
+import math
 
 import pytest
 import torch
@@ -236,10 +240,15 @@ WKV_CASES = [(2, 128, 2, 64, 64), (1, 256, 4, 32, 32), (2, 64, 1, 16, 16),
 WKV_TOL = {torch.float32: 5e-4, torch.bfloat16: 8e-3}
 
 
-def _wkv_inputs(card, b, s, h, n, dtype, w0=-1.0, seed=0):
+def _wkv_inputs(card, b, s, h, n, dtype, w0=-1.0, seed=0, w0_hi=None):
+    """lw = -exp(w0 + 0.5 N(0, 1)); with ``w0_hi``, w0 is drawn per
+    channel on [w0, w0_hi], as chip_smoke.py and the model feed it."""
     gen = torch.Generator(device=card).manual_seed(seed + s * 7 + h + n)
     r, k, v = (torch.randn(b, s, h, n, generator=gen, device=card).to(dtype)
                for _ in range(3))
+    if w0_hi is not None:
+        w0 = torch.empty(h, n, device=card).uniform_(w0, w0_hi,
+                                                     generator=gen)
     lw = -torch.exp(w0 + 0.5 * torch.randn(b, s, h, n, generator=gen,
                                            device=card))
     u = 0.5 * torch.randn(h, n, generator=gen, device=card)
@@ -282,6 +291,56 @@ def test_wkv6_kernel_strong_and_slow_decay(card):
     y_want, st_want = wkv_ops.wkv6_state_plain(r, k, v, lw, u, state0)
     torch.testing.assert_close(y, y_want, atol=5e-4, rtol=5e-4)
     torch.testing.assert_close(st, st_want, atol=5e-4, rtol=5e-4)
+
+
+def _wkv_check(card, r, k, v, lw, u, state0, chunk):
+    """One launch against the plain version: y within WKV_TOL of 1 + |y|,
+    the final state within 5e-4 of 1 + |S|, both finite."""
+    n0 = wkv_ops.wkv6.launches
+    y, st = wkv_ops.wkv6_state(r, k, v, lw, u, state0, chunk=chunk)
+    torch.cuda.synchronize()
+    assert wkv_ops.wkv6.launches == n0 + 1
+    y_want, st_want = wkv_ops.wkv6_state_plain(r, k, v, lw, u, state0)
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    tol = WKV_TOL[r.dtype]
+    torch.testing.assert_close(y.float(), y_want.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(st, st_want, atol=5e-4, rtol=5e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [16, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_kernel_strong_decay_from_a_state(card, dtype, chunk):
+    """w = 1e-3 (lw ~ -6.9 a token) over several chunks and sub-chunks
+    from a random state: the decays' products underflow within a few
+    tokens, and nothing overflows."""
+    r, k, v, _, u, state0 = _wkv_inputs(card, 1, 200, 2, 64, dtype)
+    lw = torch.full(r.shape, math.log(1e-3), device=card)
+    _wkv_check(card, r, k, v, lw, u, state0, chunk)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chunk", [16, 32])
+@pytest.mark.parametrize("extra", [-1, 1, 33])
+def test_wkv6_kernel_chunk_edges(card, dtype, chunk, extra):
+    """chip_smoke.py's draw of lw (w0 per channel on [-6, 1], down to ~-7
+    a token) at s = L - 1, L + 1 and 2 L + 1 for L = 16 (the bf16 kernel's
+    sub-chunk) and 32 (its chunk), passed as the chunk, from a random
+    state."""
+    s = chunk + extra if extra != 33 else 2 * chunk + 1
+    r, k, v, lw, u, state0 = _wkv_inputs(card, 1, s, 2, 64, dtype, w0=-6.0,
+                                         w0_hi=1.0, seed=chunk)
+    _wkv_check(card, r, k, v, lw, u, state0, chunk)
+
+
+@pytest.mark.gpu
+def test_wkv6_kernel_slow_decay_bf16(card):
+    """w0 = -6 (decays of ~0.9975 a token) in bf16: the state adds up over
+    all 2048 tokens and 64 chunks from a random state."""
+    r, k, v, lw, u, state0 = _wkv_inputs(card, 1, 2048, 2, 64,
+                                         torch.bfloat16, w0=-6.0)
+    _wkv_check(card, r, k, v, lw, u, state0, 32)
 
 
 def _quantize_exact(x):

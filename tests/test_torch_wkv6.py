@@ -9,6 +9,18 @@ and without an initial state, y and the final state, at 1e-5: both run
 the same recurrence in f32 and differ only in the order of sums inside
 each step.  Inputs are made with numpy from a seed and given to both.
 
+``ref.wkv6_chunked_factorised`` is the bf16 kernel's own factorisation
+(chunks of 32 tokens, sub-chunks of 16, decays as products of w,
+the cross-sub-chunk reference point, two-part bf16 splits) in plain
+PyTorch; it is held here against JAX's ``wkv6_ref`` with r, k and v exact
+in bf16 (what the kernel reads): at ``tests/test_kernels.py``'s shapes
+and tolerances (5e-4; 1e-3 under strong decay, w = 1e-3), and from a
+random state under strong decay, at ragged s and over 2048 slowly
+decaying tokens, where y is held as the kernel emits it, rounded to bf16,
+at the card's bf16 tolerance (8e-3 of 1 + |y|) and the state at 5e-4.
+That settles overflow, underflow and the splits' precision before the
+card runs the kernel.
+
 The CUDA kernel itself is tested on the card by
 ``tests/test_torch_gpu.py``.
 """
@@ -21,7 +33,8 @@ import torch
 from repro.kernels.rwkv6_wkv.ops import wkv6 as jax_wkv6
 from repro.kernels.rwkv6_wkv.ref import wkv6_ref as jax_wkv6_ref
 from repro_torch.kernels.rwkv6_wkv import ops
-from repro_torch.kernels.rwkv6_wkv.ref import wkv6_ref
+from repro_torch.kernels.rwkv6_wkv.ref import (wkv6_chunked_factorised,
+                                               wkv6_ref)
 
 # (b, s, h, n, chunk): tests/test_kernels.py
 SWEEP = [(2, 128, 2, 64, 64), (1, 256, 4, 32, 32), (2, 64, 1, 16, 16),
@@ -150,3 +163,120 @@ def test_wkv6_rejects_bad_inputs():
         ops.wkv6_state(r.half(), r.half(), r.half(), r, u)
     with pytest.raises(TypeError):
         ops.wkv6_state(r, r, r, r.bfloat16(), u)
+
+
+# --- the bf16 kernel's factorisation against JAX's recurrence ------------
+
+BF16_TOL = 8e-3   # y rounded to bf16, as the kernel emits it
+STATE_TOL = 5e-4
+
+
+def bf16_exact(a):
+    """a rounded to bf16 and back: the values a bf16 kernel reads."""
+    return torch.tensor(a).bfloat16().float().numpy()
+
+
+def drawn(seed, b, s, h, n, w0_lo=-6.0, w0_hi=1.0, with_state=True):
+    """r, k, v exact in bf16; lw = -exp(w0 + 0.5 N(0, 1)) with w0 per
+    channel on [w0_lo, w0_hi], as chip_smoke.py and the model feed it
+    (down to ~-7 a token); u; a random state0."""
+    rng = np.random.default_rng(seed)
+    r, k, v = (bf16_exact(rng.standard_normal((b, s, h, n))
+                          .astype(np.float32)) for _ in range(3))
+    w0 = rng.uniform(w0_lo, w0_hi, (h, n))
+    lw = (-np.exp(w0 + 0.5 * rng.standard_normal((b, s, h, n))))
+    u = (0.5 * rng.standard_normal((h, n))).astype(np.float32)
+    st = (rng.standard_normal((b, h, n, n)).astype(np.float32)
+          if with_state else None)
+    return r, k, v, lw.astype(np.float32), u, st
+
+
+def factorised_and_jax(r, k, v, lw, u, st, parts=None):
+    ty, tst = wkv6_chunked_factorised(
+        *as_torch(r, k, v, lw, u), None if st is None else torch.tensor(st),
+        parts=parts)
+    jy, jst = jax_wkv6_ref(*as_jax(r, k, v, np.exp(lw), u),
+                           None if st is None else jnp.asarray(st))
+    return (ty.numpy(), tst.numpy()), (np.asarray(jy), np.asarray(jst))
+
+
+def assert_bf16_close(got, want):
+    """y as the kernel emits it (rounded to bf16) within 8e-3 of 1 + |y|,
+    the f32 state within 5e-4 of 1 + |S|."""
+    (y, st), (yw, stw) = got, want
+    assert np.isfinite(y).all() and np.isfinite(st).all()
+    np.testing.assert_allclose(bf16_exact(y), bf16_exact(yw), atol=BF16_TOL,
+                               rtol=BF16_TOL)
+    np.testing.assert_allclose(st, stw, atol=STATE_TOL, rtol=STATE_TOL)
+
+
+@pytest.mark.parametrize("b,s,h,n,chunk", SWEEP)
+def test_factorisation_sweep(b, s, h, n, chunk):
+    """tests/test_kernels.py's shapes and decays (w = sigmoid(N(0, 1) -
+    1)) at its tolerance, 5e-4, y and the final state."""
+    r, k, v, w, u = inputs(31, b, s, h, n)
+    r, k, v = (bf16_exact(x) for x in (r, k, v))
+    got, want = factorised_and_jax(r, k, v, np.log(w), u, None)
+    for x, xw in zip(got, want):
+        np.testing.assert_allclose(x, xw, atol=5e-4, rtol=5e-4)
+
+
+@pytest.mark.parametrize("s", [128, 100, 31])
+def test_factorisation_strong_decay(s):
+    """w = 1e-3 as tests/test_kernels.py, within 1e-3, over whole and
+    ragged chunks: products of w underflow within a few tokens, nothing
+    overflows."""
+    r, k, v, w, u = inputs(32, 1, s, 1, 32, w=1e-3)
+    r, k, v = (bf16_exact(x) for x in (r, k, v))
+    got, want = factorised_and_jax(r, k, v, np.log(w), np.zeros_like(u),
+                                   None)
+    assert np.isfinite(got[0]).all()
+    np.testing.assert_allclose(got[0], want[0], atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("s", [200, 47])
+def test_factorisation_strong_decay_from_a_state(s):
+    """w = 1e-3 over several chunks and sub-chunks from a random state,
+    with the bonus term: y within 1e-3, the state within 5e-4."""
+    r, k, v, _, u, st = drawn(33, 1, s, 2, 64)
+    lw = np.full(r.shape, np.log(1e-3), np.float32)
+    got, want = factorised_and_jax(r, k, v, lw, u, st)
+    assert np.isfinite(got[0]).all() and np.isfinite(got[1]).all()
+    np.testing.assert_allclose(got[0], want[0], atol=1e-3, rtol=1e-3)
+    np.testing.assert_allclose(got[1], want[1], atol=STATE_TOL,
+                               rtol=STATE_TOL)
+
+
+@pytest.mark.parametrize("s", [15, 17, 31, 33, 65, 97])
+def test_factorisation_ragged_from_a_state(s):
+    """chip_smoke.py's draw of lw at s = L - 1, L + 1 and 2 L + 1 for L =
+    16 (a sub-chunk) and 32 (a chunk), and at three chunks and one token,
+    from a random state: within 5e-4."""
+    got, want = factorised_and_jax(*drawn(34 + s, 1, s, 2, 64))
+    for x, xw in zip(got, want):
+        np.testing.assert_allclose(x, xw, atol=5e-4, rtol=5e-4)
+
+
+@pytest.mark.parametrize("w0", [(-6.0, -6.0), (-6.0, 1.0)])
+def test_factorisation_2048_tokens(w0):
+    """rwkv6-7b's prefill length at its head size from a random state:
+    slow decay (w0 = -6, ~0.9975 a token; the state adds up over all 64
+    chunks) and chip_smoke.py's draw.  The two-part splits keep y within
+    one bf16 ulp of the recurrence, and y as the kernel emits it within
+    bf16's tolerance; the state within 5e-4."""
+    got, want = factorised_and_jax(*drawn(35, 1, 2048, 2, 64, *w0))
+    assert_bf16_close(got, want)
+
+
+@pytest.mark.parametrize("operand", ["r", "k", "s", "q", "a"])
+def test_every_split_is_needed(operand):
+    """One bf16 part instead of two for any one operand of the products
+    (r^, K^, the state, Q~ and K~, the scores) takes y outside bf16's
+    tolerance; two parts for all stay inside it."""
+    args = drawn(36, 1, 200, 2, 64)
+    got, want = factorised_and_jax(*args)
+    assert_bf16_close(got, want)
+    got, want = factorised_and_jax(*args, parts={operand: 1})
+    err = np.abs(bf16_exact(got[0]) - bf16_exact(want[0])) / (
+        1 + np.abs(bf16_exact(want[0])))
+    assert err.max() > BF16_TOL
