@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --kernel-times [--src DIR]
+    python3 chip_smoke.py --path-times [--src DIR]
 
 Four paths, each at full width with random weights from --seed, in bf16:
 stablelm-1.6b served (dense; prefill attention in the flash-attention
@@ -78,11 +79,23 @@ Phases, each of which raises on failure (the script then exits non-zero):
 15. rwkvtrain -- rwkv6-7b at full width cut to 2 of its 32 layers: 2 steps
                with grad_compress, finite loss, a gradient on every leaf of
                the time mix, no wkv6 launch
+16. fidelity -- repro_torch.core.fidelity at full width: NativeBackend times
+               stablelm-1.6b's and olmoe-1b-7b's prefill step at b=1 s=2048
+               (run while each model is loaded, after phases 7 and 8);
+               then DryRunBackend on fake CUDA tensors, params included:
+               the prefills of stablelm-1.6b (24 flash ops), olmoe-1b-7b
+               (16 flash and 16 moe_mlp), rwkv6-7b (32 wkv6) and
+               deepseek-67b (95 flash; its 134 GB of bf16 params never
+               exist), and the train cell's step (15 quantize ops, no
+               forward-only kernel): no launch, no device memory, each
+               total beside the analytic 2 N tokens plus attention
 
-It prints the kernel table as one JSON line, then the card's name and power
-limit, then the result line {"ok": true, "device": {...}} last.  Without a
-CUDA device, or without the repo's ``src/repro_torch`` beside it, it exits
-non-zero and prints no result.
+Every kernel's bound is its ``cost`` (flops, bytes) in its ``ops.py``, the
+definition the dry run's kernel ops are costed by.  It prints the fidelity
+results and the kernel table as one JSON line each, then the card's name and
+power limit, then the result line {"ok": true, "device": {...}} last.
+Without a CUDA device, or without the repo's ``src/repro_torch`` beside it,
+it exits non-zero and prints no result.
 
 ``--kernel-times`` runs only phases 1 and 2 for the flash_attention,
 moe_mlp and wkv6 kernels and their timings (phase 6's at stablelm's and
@@ -91,10 +104,14 @@ jamba's and mixtral's prefill, and the waves; wkv6 at rwkv6-7b's prefill
 shape and at each prompt length of the serve run, each checked once
 against its plain version, with its bound and share of the bound), then
 prints the times as one JSON line and the card's line, with no result
-line.  ``--src DIR``
-imports and builds ``repro_torch`` from DIR instead of this checkout's
-``src``: run once per tree, in turns, to compare two trees (e.g. a
-parent commit unpacked with ``git archive``) on one card.
+line (the tree must hold each kernel's ``cost``).  ``--path-times`` runs
+only phases 1 and 2 for flash_attention and moe_mlp and times stablelm-1.6b's
+and olmoe-1b-7b's serving paths (a 2048-token prefill, the serve run of
+phase 5, the host time of a wrapper call), then prints them as one JSON line
+and the card's line.  ``--src DIR`` imports and builds ``repro_torch`` from
+DIR instead of this checkout's ``src``: run once per tree, in turns, to
+compare two trees (e.g. a parent commit unpacked with ``git archive``) on
+one card.
 """
 
 from __future__ import annotations
@@ -180,14 +197,23 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_PROFILE_STEPS = 4, 2048, 10, 2
 MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 2, 2
 # quantize: tests/test_kernels.py's lengths, then ragged ones
 QUANT_SIZES = [256, 1000, 4096, 65536, 1, 77, 3 * 256 + 5, 1000003]
-# operations per element of the quantize function: |x|, max, x / scale,
-# round, and the two sides of the clip
-QUANT_OPS = 6
+# fidelity: the batch and length of the native and dry-run prefills, and
+# NativeBackend's timed calls after its warm-up
+FIDELITY_B, FIDELITY_S, FIDELITY_ITERS = 1, 2048, 5
+DENSE_67B = "deepseek-67b"
 
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
+
+
+def bound_of(flops: float, nbytes: float, peak_flops: float):
+    """(bound ms, what bounds it): the larger of ``flops`` at
+    ``peak_flops`` and ``nbytes`` at the memory rate, both from the
+    kernel's ``cost``."""
+    return max((flops / peak_flops * 1e3, "operations"),
+               (nbytes / PEAK_BYTES * 1e3, "bytes"))
 
 
 def card_line() -> str:
@@ -260,6 +286,81 @@ def kernel_times(torch, np, card: str, src: Path, seed: int) -> None:
         "lengths": phase_wkv_lengths(torch, w_ops, lens,
                                      get_config(RWKV_ARCH).n_layers, card)}
     print(json.dumps({"src": str(src), "times": times}))
+
+
+def path_times(torch, np, card: str, src: Path, seed: int) -> None:
+    """--path-times: stablelm-1.6b's and olmoe-1b-7b's serving paths from
+    ``src`` at full width: a 2048-token prefill (host clock ending in a
+    synchronize, median and least of 5 after 2 warm-ups), the serve run
+    of phase 5 (prefill ms per request, decode ms per step), and the host
+    time of one kernel wrapper call at the decode step's shapes (moe_mlp)
+    and at a one-token prefill (flash), enqueued without a synchronize.
+    It calls nothing that a tree of an earlier slice lacks, so a parent
+    tree runs it too."""
+    import statistics
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import kernel, ops
+    from repro_torch.kernels.moe_mlp import kernel as moe_kernel
+    from repro_torch.kernels.moe_mlp import ops as moe_ops
+    from repro_torch.models import build_model
+    from repro_torch.serve import BatchServer, Request
+    phase_build(build, (kernel, moe_kernel))
+    gen = torch.Generator(device="cuda").manual_seed(13)
+
+    def host_us(fn, blocks=20, n=100):
+        """The least mean over ``blocks`` blocks of ``n`` calls: the
+        host shares its cores, and the least block is the one that ran
+        undisturbed."""
+        fn()
+        best = math.inf
+        for _ in range(blocks):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            best = min(best, (time.perf_counter() - t0) / n * 1e6)
+        torch.cuda.synchronize()
+        return best
+
+    q = torch.randn(1, 1, 32, 64, generator=gen, device="cuda").bfloat16()
+    x, wi, wg, wo = _moe_inputs(torch, gen, *MOE_DECODE, torch.bfloat16)
+    out = {"wrapper host us": {
+        "flash_attention s=1": host_us(lambda: ops.flash_attention(q, q, q)),
+        "moe_mlp decode": host_us(lambda: moe_ops.expert_mlp(x, wi, wg, wo))}}
+    del x, wi, wg, wo
+    for arch in (ARCH, MOE_ARCH):
+        cfg = get_config(arch)
+        model = build_model(cfg)
+        params = model.load(model.init(seed, "cuda"), "cuda")
+        tokens = torch.randint(0, cfg.vocab_size, (1, 2048), device="cuda",
+                               generator=gen)
+        times = []
+        for i in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.prefill(params, {"tokens": tokens})
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        rng = np.random.default_rng(seed)
+        lens = serve_lengths(rng)
+        reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, int(n)),
+                        max_new_tokens=SERVE_NEW) for i, n in enumerate(lens)]
+        srv = BatchServer(model, params, slots=SERVE_SLOTS,
+                          seq_capacity=SERVE_CAP, device="cuda")
+        srv.serve(reqs)
+        dec = np.array(srv.decode_seconds) * 1e3
+        out[arch] = {"prefill s=2048 ms median": statistics.median(times[2:]),
+                     "prefill s=2048 ms min": min(times[2:]),
+                     "serve prefill ms per request":
+                         float(np.mean(srv.prefill_seconds) * 1e3),
+                     "decode ms per step median": float(np.median(dec)),
+                     "decode ms per step min": float(dec.min()),
+                     "decode steps": srv.decode_steps}
+        print(f"path times {arch}: {out[arch]} [{card}]")
+        del params, model, srv
+        torch.cuda.empty_cache()
+    print(json.dumps({"src": str(src), "path_times": out}))
 
 
 def phase_sweep(torch, ops) -> None:
@@ -438,10 +539,8 @@ def phase_timing(torch, ops, shape):
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True))
-    flops = 2 * b * h * s * s * d               # causal: half of 4 b h s^2 d
-    nbytes = 4 * b * s * h * d * q.element_size()
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    bound_ms, bound_by = max((t_ops, "operations"), (t_bytes, "bytes"))
+    flops, nbytes = ops.cost(q.shape, k.shape, q.dtype)
+    bound_ms, bound_by = bound_of(flops, nbytes, PEAK_BF16_FLOPS)
     print(f"timing b={b} s={s} h={h} d={d} bf16: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
           f"({bound_by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB); "
@@ -620,7 +719,7 @@ def phase_moe_timing(torch, moe_ops, shape, label: str, card: str):
     """The kernel, its plain version and three torch.bmm over the experts
     (a yardstick the port never calls) on one bf16 input; the bound is the
     larger of its flops at the bf16 peak and its bytes (the weights, x and
-    out, each once) at the memory rate."""
+    out, each once) at the memory rate, both from ``moe_ops.cost``."""
     import torch.nn.functional as F
     g, e, c, d, f = shape
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -642,10 +741,8 @@ def phase_moe_timing(torch, moe_ops, shape, label: str, card: str):
     ms = cuda_ms(lambda: moe_ops.expert_mlp(x, wi, wg, wo))
     plain_ms = cuda_ms(lambda: moe_ops.expert_mlp_plain(x, wi, wg, wo))
     lib_ms = cuda_ms(library)
-    flops = 6 * g * e * c * d * f
-    nbytes = (3 * e * d * f + 2 * g * e * c * d) * x.element_size()
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    bound_ms, bound_by = max((t_ops, "operations"), (t_bytes, "bytes"))
+    flops, nbytes = moe_ops.cost(x.shape, wi.shape, x.dtype)
+    bound_ms, bound_by = bound_of(flops, nbytes, PEAK_BF16_FLOPS)
     print(f"moe timing {label} G={g} E={e} C={c} D={d} F={f} bf16: kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.bmm {lib_ms:.4f} ms, "
           f"bound {bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP, "
@@ -833,17 +930,11 @@ def phase_rwkv_handoff(torch, np, cfg, model, params, seed: int, w_ops,
     check(int(lf.argmax()) == int(ls.argmax()), "handoff argmax differs")
 
 
-def _wkv_bound(b: int, s: int, h: int, n: int, elem: int):
-    """(bound ms, what bounds it, bytes, operations): r, k, v and y in
-    ``elem`` bytes and lw in f32, each read or written once, the final
-    f32 state written once; 4 n^2 f32 operations per token and head (y:
-    n^2 multiply-adds; the state: n^2 multiplies and n^2 multiply-adds) at
-    the rate outside the tensor cores."""
-    nbytes = b * s * h * n * (4 * elem + 4) + 4 * b * h * n * n
-    ops = 4 * n * n * b * s * h
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32_FLOPS * 1e3
-    bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
-    return bound_ms, bound_by, nbytes, ops
+def _wkv_bound(w_ops, shape, dtype):
+    """(bound ms, what bounds it, bytes, operations): ``w_ops.cost`` from
+    a zero state, its operations at the rate outside the tensor cores."""
+    ops, nbytes = w_ops.cost(shape, dtype)
+    return (*bound_of(ops, nbytes, PEAK_F32_FLOPS), nbytes, ops)
 
 
 def phase_wkv_timing(torch, w_ops, rw, card: str) -> dict:
@@ -866,7 +957,7 @@ def phase_wkv_timing(torch, w_ops, rw, card: str) -> dict:
                            iters=3, warmup=1)
         chunked_ms = cuda_ms(lambda: rw.wkv6_chunked_plain(
             r, k, v, lw, u, None, RWKV_CHUNK), iters=5, warmup=1)
-    bound_ms, bound_by, nbytes, ops = _wkv_bound(b, s, h, n, r.element_size())
+    bound_ms, bound_by, nbytes, ops = _wkv_bound(w_ops, r.shape, r.dtype)
     plain = ("" if rw is None else
              f"plain (sequential) {plain_ms:.4f} ms, plain chunked scan "
              f"{chunked_ms:.4f} ms, library none, ")
@@ -903,7 +994,7 @@ def phase_wkv_lengths(torch, w_ops, lens, n_layers: int, card: str) -> dict:
                   f"{err_st}")
         ms = cuda_ms(lambda: w_ops.wkv6_state(r, k, v, lw, u,
                                               chunk=RWKV_CHUNK))
-        bound, _, _, _ = _wkv_bound(1, s, h, n, 2)
+        bound, _, _, _ = _wkv_bound(w_ops, r.shape, r.dtype)
         out[f"s={s}"] = ms
         print(f"wkv6 lengths s={s}: kernel {ms:.4f} ms per launch (bound "
               f"{bound:.4f}, share {bound / ms:.4f}), {ms * n_layers:.3f} ms "
@@ -988,7 +1079,9 @@ def phase_quantize_sweep(torch, q_ops, quantize_plain) -> None:
         check(ok, f"quantize kernel edge rows (block={block})")
 
 
-def _train_setup(torch, cfg, seed: int):
+def _train_setup(torch, cfg, seed: int, state: bool = True):
+    """The train cell's model, options, state (drawn on the card; None
+    with ``state=False``), step and pipeline."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data import SyntheticPipeline
     from repro_torch.models import build_model
@@ -996,7 +1089,7 @@ def _train_setup(torch, cfg, seed: int):
                                    init_train_state)
     model = build_model(cfg)                       # bf16 compute
     opts = TrainOptions(grad_compress=True, warmup=2, total_steps=TRAIN_STEPS)
-    state = init_train_state(model, seed, opts, "cuda")
+    state = init_train_state(model, seed, opts, "cuda") if state else None
     pipe = SyntheticPipeline(cfg, ShapeConfig("chip_train", TRAIN_SEQ,
                                               TRAIN_BATCH, "train"), seed=seed)
     return model, opts, state, build_train_step(model, opts), pipe
@@ -1106,13 +1199,11 @@ def phase_grads(torch, model, opts, state, batch, step_ms: float, q_ops,
     return rows
 
 
-def _quant_bound(torch, n: int, nb: int):
-    """(bound ms, what bounds it): each input byte read once, each output
-    byte written once, at the memory rate; QUANT_OPS operations per
-    element at the f32 rate outside the tensor cores."""
-    t_bytes = (n * 4 + n + nb * 4) / PEAK_BYTES * 1e3
-    t_ops = n * QUANT_OPS / PEAK_F32_FLOPS * 1e3
-    return max((t_bytes, "bytes"), (t_ops, "operations"))
+def _quant_bound(q_ops, nb: int):
+    """(bound ms, what bounds it, bytes): ``q_ops.cost`` of ``nb`` rows of
+    256, its operations at the f32 rate outside the tensor cores."""
+    ops, nbytes = q_ops.cost((nb, 256))
+    return (*bound_of(ops, nbytes, PEAK_F32_FLOPS), nbytes)
 
 
 def phase_qtiming(torch, q_ops, quantize_plain, rows, card: str):
@@ -1127,19 +1218,18 @@ def phase_qtiming(torch, q_ops, quantize_plain, rows, card: str):
     ms = cuda_ms(lambda: q_ops.quantize_blocks(big))
     plain_ms = cuda_ms(lambda: quantize_plain(big), iters=5, warmup=1)
     n, nb = big.numel(), big.shape[0]
-    bound_ms, bound_by = _quant_bound(torch, n, nb)
+    bound_ms, bound_by, nbytes = _quant_bound(q_ops, nb)
     print(f"qtiming largest leaf nb={nb} block=256 ({n / 1e6:.1f} M f32): "
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library none, bound "
-          f"{bound_ms:.4f} ms ({bound_by}: {(5 * n + 4 * nb) / 1e9:.3f} GB); "
-          f"kernel at {(5 * n + 4 * nb) / ms / 1e9:.3f} TB/s, "
+          f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e9:.3f} GB); "
+          f"kernel at {nbytes / ms / 1e9:.3f} TB/s, "
           f"{ms / bound_ms:.2f}x the bound; max_abs_err {err} [{card}]")
     all_ms = cuda_ms(lambda: [q_ops.quantize_blocks(r) for r in rows],
                      iters=5, warmup=1)
     all_plain = cuda_ms(lambda: [quantize_plain(r) for r in rows],
                         iters=3, warmup=1)
     n_all = sum(r.numel() for r in rows)
-    nb_all = sum(r.shape[0] for r in rows)
-    all_bound, _ = _quant_bound(torch, n_all, nb_all)
+    all_bound, _, _ = _quant_bound(q_ops, sum(r.shape[0] for r in rows))
     print(f"qtiming all {len(rows)} leaves ({n_all / 1e9:.4f} B f32): kernel "
           f"{all_ms:.4f} ms, plain {all_plain:.4f} ms, bound {all_bound:.4f} "
           f"ms per step [{card}]")
@@ -1240,11 +1330,156 @@ def phase_moe_train(torch, counters, seed: int, card: str) -> dict:
     return launches
 
 
+def phase_fidelity_native(torch, model, params, seed: int,
+                          card: str) -> float:
+    """NativeBackend on the prefill step at b=1 s=2048: its ms per step,
+    timed with CUDA events over FIDELITY_ITERS calls after a warm-up; the
+    logits checked finite and of the right shape."""
+    from repro_torch.core.fidelity import NativeBackend, StepProgram, specs_of
+    from repro_torch.models.layers import padded_vocab
+    from repro_torch.serve.step import build_prefill_step
+    cfg = model.cfg
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                     (FIDELITY_B, FIDELITY_S), device="cuda",
+                                     generator=gen)}
+    prog = StepProgram(f"{cfg.name} prefill", build_prefill_step(model),
+                       specs_of((params, batch)), device="cuda")
+    rep = NativeBackend().run(prog, params, batch, iters=FIDELITY_ITERS)
+    logits = rep.outputs[0]
+    check(tuple(logits.shape) == (FIDELITY_B, 1, padded_vocab(cfg))
+          and bool(torch.isfinite(logits).all()),
+          f"native {prog.name}: logits {tuple(logits.shape)}")
+    print(f"fidelity native {prog.name} b={FIDELITY_B} s={FIDELITY_S}: "
+          f"{rep.wall_s * 1e3:.3f} ms per step (CUDA events, "
+          f"{FIDELITY_ITERS} calls) [{card}]")
+    return rep.wall_s * 1e3
+
+
+def analytic_flops(cfg, specs, b: int, s: int, train: bool) -> float:
+    """2 N tokens plus attention: N the parameters a token's products read
+    (a MoE layer's experts at top_k of n_experts; the unembedding for the
+    last position only in a prefill; the embedding is a gather), attention
+    2 b s^2 h d a layer (the causal half of q k^T and p v), or an RWKV
+    layer's time mix 4 n^2 b s h; a train step 4x that (the forward, its
+    recomputation, and a backward of twice the forward)."""
+    import math
+    layers = 0.0
+    for path, spec in _spec_items(specs["layers"]):
+        n = math.prod(spec.shape)
+        if cfg.family == "moe" and path[-1] in ("wi", "wg", "wo") \
+                and "ffn" in path:
+            n *= cfg.top_k / cfg.n_experts
+        layers += n
+    vp = specs["embed"].get("head", specs["embed"]["table"]).shape
+    head = math.prod(vp)
+    tokens = b * s
+    total = 2 * layers * tokens + 2 * head * (tokens if train else b)
+    if cfg.family == "ssm":
+        h, n = cfg.n_rwkv_heads, cfg.rwkv_head_size
+        total += cfg.n_layers * 4 * n * n * b * s * h
+    else:
+        total += cfg.n_layers * 2 * b * s * s * cfg.n_heads * cfg.head_dim
+    return total * (4 if train else 1)
+
+
+def _spec_items(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _spec_items(v, path + (k,))
+    else:
+        yield path, tree
+
+
+def phase_fidelity_dryruns(torch, counters, seed: int, card: str) -> dict:
+    """DryRunBackend on fake CUDA tensors at full width, params included
+    (their specs from an init on fake tensors): stablelm-1.6b's,
+    olmoe-1b-7b's, rwkv6-7b's and deepseek-67b's prefill at b=1 s=2048
+    and the train cell's step (stablelm-1.6b, 4 x 2048, grad_compress).
+    Each leaves every launch count and the card's allocated memory as
+    they were, and reaches each kernel's custom op exactly once per layer
+    (the train step: once per parameter leaf, quantize only)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.fidelity import (DryRunBackend, StepProgram,
+                                           TensorSpec, eval_shape, specs_of)
+    from repro_torch.models import build_model
+    from repro_torch.serve.step import build_prefill_step
+    from repro_torch.train import batch_to, build_train_step, init_train_state
+    tokens = {"tokens": TensorSpec((FIDELITY_B, FIDELITY_S), torch.int64)}
+    runs = []
+    for arch in (ARCH, MOE_ARCH, RWKV_ARCH, DENSE_67B):
+        cfg = get_config(arch)
+        model = build_model(cfg)
+        specs = eval_shape(lambda: model.load(model.init(seed, "cpu"), "cpu"))
+        want = ({"wkv6": cfg.n_layers} if cfg.family == "ssm" else
+                {"flash_attention": cfg.n_layers,
+                 **({"expert_mlp": cfg.n_layers} if cfg.family == "moe"
+                    else {})})
+        runs.append((f"{arch} prefill b={FIDELITY_B} s={FIDELITY_S}", cfg,
+                     StepProgram(f"{arch} prefill", build_prefill_step(model),
+                                 (specs, tokens), device="cuda"),
+                     want, FIDELITY_B, FIDELITY_S, False))
+    cfg = get_config(ARCH)
+    model, opts, _, _, pipe = _train_setup(torch, cfg, seed, state=False)
+    state = eval_shape(lambda: init_train_state(model, seed, opts, "cpu"))
+    n_leaves = len(list(_leaves(state["params"])))
+    runs.append((f"{ARCH} train step b={TRAIN_BATCH} s={TRAIN_SEQ} "
+                 f"grad_compress", cfg,
+                 StepProgram(f"{ARCH} train", build_train_step(model, opts),
+                             (state, specs_of(batch_to(pipe.batch(0), "cpu"))),
+                             device="cuda"),
+                 {"quantize_blocks": n_leaves}, TRAIN_BATCH, TRAIN_SEQ, True))
+    out = {}
+    for label, cfg, prog, want, b, s, train in runs:
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        n0 = {n: w.launches for n, w in counters.items()}
+        rep = DryRunBackend().run(prog)
+        torch.cuda.synchronize()
+        launched = {n: w.launches - n0[n] for n, w in counters.items()}
+        check(not any(launched.values()),
+              f"dry run {label} launched kernels: {launched}")
+        check(torch.cuda.memory_allocated() == mem0,
+              f"dry run {label} allocated device memory")
+        check(rep.detail["kernels"] == want,
+              f"dry run {label}: kernel ops {rep.detail['kernels']}, want "
+              f"{want}")
+        analytic = analytic_flops(cfg, _param_specs(prog), b, s, train)
+        k_flops = sum(f for n, f, _ in rep.detail["ops"]
+                      if n.startswith("repro_torch."))
+        k_bytes = sum(nb for n, _, nb in rep.detail["ops"]
+                      if n.startswith("repro_torch."))
+        out[label] = dict(flops=rep.flops, bytes=rep.bytes_accessed,
+                          analytic_flops=analytic, kernels=want,
+                          kernel_flops=k_flops, kernel_bytes=k_bytes,
+                          ops=len(rep.detail["ops"]),
+                          argument_bytes=rep.memory["argument_bytes"],
+                          host_s=rep.wall_s)
+        print(f"fidelity dryrun {label}: {rep.flops / 1e12:.4f} TFLOP "
+              f"({rep.flops / analytic:.4f} of the analytic "
+              f"{analytic / 1e12:.4f}), {rep.bytes_accessed / 1e9:.3f} GB; "
+              f"the kernel ops {k_flops / rep.flops:.4f} of the flops and "
+              f"{k_bytes / rep.bytes_accessed:.4f} of the bytes; "
+              f"{len(rep.detail['ops'])} ops, kernel ops {want}, arguments "
+              f"{rep.memory['argument_bytes'] / 2**30:.2f} GiB never "
+              f"allocated; {rep.wall_s:.1f} s on the host; no launch, device "
+              f"memory unchanged [{card}]")
+    return out
+
+
+def _param_specs(prog):
+    """The params of a prefill program's inputs, or of a train state's."""
+    first = prog.input_specs[0]
+    return first.get("params", first)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kernel-times", action="store_true",
                     help="only build and time the kernels")
+    ap.add_argument("--path-times", action="store_true",
+                    help="only time stablelm's and olmoe's serving paths")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the tree to import repro_torch from")
     args = ap.parse_args()
@@ -1261,13 +1496,14 @@ def main() -> int:
     sys.path.insert(0, str(src))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if args.kernel_times:
+    if args.kernel_times or args.path_times:
         card = card_line()
         print(f"card: {card}; torch {torch.__version__}, CUDA "
               f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
         import numpy as np
         with torch.no_grad():
-            kernel_times(torch, np, card, src, args.seed)
+            (kernel_times if args.kernel_times else path_times)(
+                torch, np, card, src, args.seed)
         print(card)
         return 0
     import gc
@@ -1327,6 +1563,9 @@ def main() -> int:
 
     # 7. where a served request's time goes on the device
     phase_profile(torch, np, cfg, model, params, args.seed, card)
+    # 16 (native half): the prefill step under NativeBackend
+    native = {f"{ARCH} prefill": phase_fidelity_native(torch, model, params,
+                                                        args.seed, card)}
 
     # 8. olmoe-1b-7b: stablelm's parameters freed first
     del params, model
@@ -1352,6 +1591,8 @@ def main() -> int:
     td = phase_moe_timing(torch, moe_ops, MOE_DECODE, "decode", card)
     phase_moe_waves(torch, moe_ops, card)
     phase_profile(torch, np, mcfg, mmodel, mparams, args.seed, card)
+    native[f"{MOE_ARCH} prefill"] = phase_fidelity_native(
+        torch, mmodel, mparams, args.seed, card)
 
     # 9-12. training stablelm-1.6b: olmoe's parameters freed first
     del mparams, mmodel
@@ -1408,6 +1649,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     rwkv_train_launches = phase_rwkv_train(torch, counters, args.seed, card)
+
+    # 16. fidelity: the dry runs on fake CUDA tensors, host-only
+    gc.collect()
+    torch.cuda.empty_cache()
+    dryruns = phase_fidelity_dryruns(torch, counters, args.seed, card)
+    print(json.dumps({"fidelity": {
+        "native_ms": native, "dryrun": dryruns,
+        "shape": f"b={FIDELITY_B} s={FIDELITY_S}"}}))
 
     by_path = {ARCH: dense_launches, MOE_ARCH: moe_launches,
                f"{ARCH} train": train_launches,

@@ -6,6 +6,13 @@ launches the hand-written kernel (``csrc/flash_attention.cu``: bf16 on
 the tensor cores, f32 with exact FMAs) or raises; it takes the plain
 version only for tensors on the CPU.  ``flash_attention.launches``
 counts kernel launches.
+
+The launch is the custom op ``repro_torch::flash_attention`` (``OP``):
+its CUDA implementation builds and launches the kernel (alignment checks,
+the launch, the count); its fake implementation gives the output's shape,
+dtype and strides, so a dry run on fake tensors
+(``repro_torch.core.fidelity``) sees one op, costed by ``cost``, and
+launches nothing.
 """
 
 from __future__ import annotations
@@ -14,7 +21,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import refuse_autograd
+from repro_torch.kernels import refuse_autograd, register_op
 from repro_torch.kernels.flash_attention import kernel
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -92,11 +99,42 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"b * h = {b * h} exceeds the grid ({_MAX_GRID_Y})")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("the head dim of q, k and v must be contiguous")
+    return OP(q, k, v, causal, window)
+
+
+def _flash_attention_cuda(q, k, v, causal, window):
+    """The counted launch on checked CUDA inputs."""
     if q.dtype == torch.bfloat16:
         check_staging(q, k, v)
     o = _launch(q, k, v, causal, window)
     flash_attention.launches += 1
     return o
+
+
+def _flash_attention_fake(q, k, v, causal, window):
+    return q.new_empty(q.shape)
+
+
+def cost(q_shape, kv_shape, dtype: torch.dtype, causal: bool = True,
+         window: int = 0):
+    """(flops, bytes) of one call: 4 d flops per (query, key) pair it
+    sees, causal counted as half of s x s_kv, a window as at most
+    ``window`` keys a query; q, k, v and the output each moved once."""
+    b, s, h, d = q_shape
+    s_kv, kvh = kv_shape[1], kv_shape[2]
+    pairs = s * s_kv / 2 if causal else s * s_kv
+    if window > 0:
+        pairs = min(pairs, s * window)
+    values = 2 * b * s * h * d + 2 * b * s_kv * kvh * d
+    return 4.0 * b * h * d * pairs, float(values * dtype.itemsize)
+
+
+OP = register_op("flash_attention",
+                 "(Tensor q, Tensor k, Tensor v, bool causal, int window)"
+                 " -> Tensor",
+                 _flash_attention_cuda, _flash_attention_fake,
+                 lambda q, k, v, causal, window: cost(
+                     q.shape, k.shape, q.dtype, causal, window))
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,

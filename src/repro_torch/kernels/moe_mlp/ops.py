@@ -13,13 +13,19 @@ bf16 parts in a workspace (three hold each f32 exactly).  f32: one pass
 over d_ff when h for all of it fits a block's shared memory, else d_ff in
 tiles of ``split_tile(F)`` columns whose outputs are summed in an f32
 workspace.
+
+The launch is the custom op ``repro_torch::expert_mlp`` (``OP``): its
+CUDA implementation holds the alignment checks, the workspaces, the
+schedule and the count; its fake implementation gives the output's shape,
+dtype and strides, so a dry run on fake tensors sees one op, costed by
+``cost``, and launches nothing.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import refuse_autograd
+from repro_torch.kernels import refuse_autograd, register_op
 from repro_torch.kernels.moe_mlp import kernel
 from repro_torch.kernels.moe_mlp.ref import expert_mlp_plain
 
@@ -72,6 +78,11 @@ def expert_mlp(x: torch.Tensor, wi: torch.Tensor, wg: torch.Tensor,
                          f"got D={d}, F={f}")
     if e > _MAX_GRID_Y:
         raise ValueError(f"E = {e} exceeds the grid ({_MAX_GRID_Y})")
+    return OP(x, wi, wg, wo)
+
+
+def _expert_mlp_cuda(x, wi, wg, wo):
+    """The counted launch on checked CUDA inputs."""
     x, wi, wg, wo = (t.contiguous() for t in (x, wi, wg, wo))
     if any(t.data_ptr() % 16 for t in (x, wi, wg, wo)):
         raise ValueError("the kernel loads 16-byte vectors: x and the "
@@ -82,6 +93,26 @@ def expert_mlp(x: torch.Tensor, wi: torch.Tensor, wg: torch.Tensor,
         out = _launch_f32(x, wi, wg, wo)
     expert_mlp.launches += 1
     return out
+
+
+def _expert_mlp_fake(x, wi, wg, wo):
+    return x.new_empty(x.shape)
+
+
+def cost(x_shape, w_shape, dtype: torch.dtype):
+    """(flops, bytes) of one call on x ``(G, E, C, D)`` and wi ``(E, D,
+    F)``: three products of 2 G E C D F flops; the three weights, x and
+    the output each moved once."""
+    g, e, c, d = x_shape
+    f = w_shape[2]
+    values = 3 * e * d * f + 2 * g * e * c * d
+    return 6.0 * g * e * c * d * f, float(values * dtype.itemsize)
+
+
+OP = register_op("expert_mlp",
+                 "(Tensor x, Tensor wi, Tensor wg, Tensor wo) -> Tensor",
+                 _expert_mlp_cuda, _expert_mlp_fake,
+                 lambda x, wi, wg, wo: cost(x.shape, wi.shape, x.dtype))
 
 
 def _launch_bf16(x, wi, wg, wo) -> torch.Tensor:

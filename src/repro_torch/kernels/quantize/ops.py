@@ -7,6 +7,12 @@ scales (nb,) f32, pad)``.  ``quantize_blocks`` takes the rows as they
 are.  On a CUDA tensor they launch the hand-written kernel
 (``csrc/quantize.cu``) or raise; they take the plain version only for
 tensors on the CPU.  ``quantize.launches`` counts kernel launches.
+
+The launch is the custom op ``repro_torch::quantize_blocks`` (``OP``):
+its CUDA implementation holds the alignment check, the launch and the
+count; its fake implementation gives the outputs' shapes, dtypes and
+strides, so a dry run on fake tensors sees one op, costed by ``cost``,
+and launches nothing.
 """
 
 from __future__ import annotations
@@ -16,10 +22,14 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import register_op
 from repro_torch.kernels.quantize import kernel
 from repro_torch.kernels.quantize.ref import quantize_plain
 
 BLOCKS = (128, 256)
+# operations per value: |x|, max, x / scale, round, and the two sides of
+# the clip
+OPS_PER_VALUE = 6
 
 
 def quantize_blocks(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -35,9 +45,14 @@ def quantize_blocks(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         return quantize_plain(x)
     if x.device.type != "cuda":
         raise ValueError(f"no quantize for device {x.device}")
+    if x.shape[1] not in BLOCKS:
+        raise ValueError(f"block {x.shape[1]} not built; one of {BLOCKS}")
+    return OP(x)
+
+
+def _quantize_cuda(x):
+    """The counted launch on checked CUDA rows."""
     nb, block = x.shape
-    if block not in BLOCKS:
-        raise ValueError(f"block {block} not built; one of {BLOCKS}")
     if x.data_ptr() % 16:
         raise ValueError("the kernel loads 16-byte vectors: x must start "
                          "on a 16-byte boundary")
@@ -51,6 +66,27 @@ def quantize_blocks(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         raise RuntimeError(f"quantize kernel launch failed: CUDA error {err}")
     quantize.launches += 1
     return q, scales
+
+
+def _quantize_blocks_fake(x):
+    return (x.new_empty(x.shape, dtype=torch.int8),
+            x.new_empty(x.shape[:1]))
+
+
+def cost(shape, dtype: torch.dtype = torch.float32):
+    """(operations, bytes) of one call on rows ``(nb, block)``:
+    ``OPS_PER_VALUE`` operations a value; the f32 rows read once, q and
+    the f32 scales written once."""
+    nb, block = shape
+    n = nb * block
+    return (float(OPS_PER_VALUE * n),
+            float(n * dtype.itemsize + n + nb * torch.float32.itemsize))
+
+
+OP = register_op("quantize_blocks",
+                 "(Tensor x) -> (Tensor, Tensor)",
+                 _quantize_cuda, _quantize_blocks_fake,
+                 lambda x: cost(x.shape, x.dtype))
 
 
 def quantize(x: torch.Tensor, *, block: int = 256

@@ -16,6 +16,12 @@ runs the chunked form on the tensor cores in chunks of 32 tokens and
 ignores ``chunk`` (``ref.wkv6_chunked_factorised`` is that factorisation
 in plain PyTorch, for the tests).  ``wkv6.launches`` counts kernel
 launches of both.
+
+The launch is the custom op ``repro_torch::wkv6`` (``OP``): its CUDA
+implementation holds the copies of unaligned views, the launch and the
+count; its fake implementation gives the outputs' shapes, dtypes and
+strides, so a dry run on fake tensors sees one op, costed by ``cost``,
+and launches nothing.
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import refuse_autograd
+from repro_torch.kernels import refuse_autograd, register_op
 from repro_torch.kernels.rwkv6_wkv import kernel
 from repro_torch.kernels.rwkv6_wkv.ref import wkv6_ref
 
@@ -89,6 +95,12 @@ def wkv6_state(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not 1 <= chunk <= MAX_CHUNK:
         raise ValueError(f"chunk {chunk}: the kernel stages 1 to "
                          f"{MAX_CHUNK} tokens at a time")
+    return OP(r, k, v, lw, u, state0, chunk)
+
+
+def _wkv6_cuda(r, k, v, lw, u, state0, chunk):
+    """The counted launch on checked CUDA inputs."""
+    b, s, h, n = r.shape
     lib = kernel.load()
     # the kernel's tensor-map copies need 16-byte aligned rows: a view may
     # start anywhere
@@ -110,6 +122,34 @@ def wkv6_state(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"wkv6 kernel launch failed: CUDA error {err}")
     wkv6.launches += 1
     return y, state
+
+
+def _wkv6_fake(r, k, v, lw, u, state0, chunk):
+    b, s, h, n = r.shape
+    return r.new_empty(r.shape), r.new_empty((b, h, n, n),
+                                             dtype=torch.float32)
+
+
+def cost(shape, dtype: torch.dtype, with_state: bool = False):
+    """(operations, bytes) of one call on r ``(b, s, h, n)``: 4 n^2 f32
+    operations per token and head (y: n^2 multiply-adds; the state: n^2
+    multiplies and n^2 multiply-adds); r, k, v and y in ``dtype`` and lw
+    in f32 moved once, the f32 final state written once and, with
+    ``with_state``, the initial one read once (u's h n values are left
+    out: under 0.02% at rwkv6-7b's shape)."""
+    b, s, h, n = shape
+    states = 2 if with_state else 1
+    nbytes = (b * s * h * n * (4 * dtype.itemsize + 4)
+              + 4 * states * b * h * n * n)
+    return float(4 * n * n * b * s * h), float(nbytes)
+
+
+OP = register_op("wkv6",
+                 "(Tensor r, Tensor k, Tensor v, Tensor lw, Tensor u, "
+                 "Tensor? state0, int chunk) -> (Tensor, Tensor)",
+                 _wkv6_cuda, _wkv6_fake,
+                 lambda r, k, v, lw, u, state0, chunk: cost(
+                     r.shape, r.dtype, state0 is not None))
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,

@@ -9,11 +9,19 @@ of the JAX tree are not kept (sharding is a later slice).
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, Iterator, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, NamedTuple, Optional, Tuple
 
 import torch
 
 Tree = Dict[str, Any]
+
+
+class TensorSpec(NamedTuple):
+    """A tensor's shape and dtype, as ``jax.ShapeDtypeStruct``, and
+    whether it requires grad (the master params of a train state do)."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    requires_grad: bool = False
 
 
 def param(gen: Optional[torch.Generator], shape: Tuple[int, ...],

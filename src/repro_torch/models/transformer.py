@@ -19,7 +19,7 @@ Other families raise ``NotImplementedError`` naming their ROADMAP item.
 
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -28,7 +28,7 @@ from repro_torch.configs import ROADMAP
 from repro_torch.models import layers as ll
 from repro_torch.models import moe as me
 from repro_torch.models import rwkv as rw
-from repro_torch.models.common import cast, stack_inits
+from repro_torch.models.common import TensorSpec, cast, stack_inits
 
 FAMILIES = ("dense", "moe", "ssm")
 MODES = ("train", "prefill", "decode")
@@ -77,11 +77,6 @@ def init_lm(gen: torch.Generator, cfg) -> Dict:
 # ---------------------------------------------------------------------------
 # Cache
 # ---------------------------------------------------------------------------
-
-class TensorSpec(NamedTuple):
-    shape: Tuple[int, ...]
-    dtype: torch.dtype
-
 
 def kv_capacity(cfg, seq_len: int) -> int:
     if cfg.sliding_window:

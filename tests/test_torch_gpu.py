@@ -424,3 +424,47 @@ def test_train_step_on_the_card(card):
         cpu, mc = step(cpu, batch_to(b, "cpu"))
         for k in ("loss", "grad_norm", "lr"):
             assert abs(float(mg[k]) - float(mc[k])) <= 2e-2 * abs(float(mc[k]))
+
+
+@pytest.mark.gpu
+def test_dry_run_on_the_card_launches_and_allocates_nothing(card):
+    """DryRunBackend on fake CUDA tensors, on the card: a smoke olmoe
+    prefill reaches the flash and moe_mlp ops once per layer, a smoke
+    train step with grad_compress the quantize op once per leaf; no
+    launch is counted and the card's allocated memory does not move."""
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.fidelity import (DryRunBackend, StepProgram,
+                                           TensorSpec, eval_shape, specs_of)
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.models import build_model
+    from repro_torch.serve.step import build_prefill_step
+    from repro_torch.train import (TrainOptions, batch_to, build_train_step,
+                                   init_train_state)
+    model = build_model(smoke(get_config("olmoe-1b-7b")))
+    opts = TrainOptions(grad_compress=True)
+    pipe = SyntheticPipeline(model.cfg, ShapeConfig("t", 32, 4, "train"))
+    progs = [
+        (StepProgram("prefill", build_prefill_step(model),
+                     (eval_shape(lambda: model.load(model.init(0, "cpu"),
+                                                    "cpu")),
+                      {"tokens": TensorSpec((2, 64), torch.int64)}),
+                     device=card),
+         {"flash_attention": 4, "expert_mlp": 4}),
+        (StepProgram("train", build_train_step(model, opts),
+                     (eval_shape(lambda: init_train_state(model, 0, opts,
+                                                          "cpu")),
+                      specs_of(batch_to(pipe.batch(0), "cpu"))),
+                     device=card),
+         {"quantize_blocks": 15})]          # one per parameter leaf
+    counts = (q_ops.quantize, ops.flash_attention, moe_ops.expert_mlp,
+              wkv_ops.wkv6)
+    for prog, want in progs:
+        torch.cuda.synchronize()
+        mem0, n0 = torch.cuda.memory_allocated(), [c.launches for c in counts]
+        rep = DryRunBackend().run(prog)
+        torch.cuda.synchronize()
+        assert torch.cuda.memory_allocated() == mem0
+        assert [c.launches for c in counts] == n0
+        assert rep.detail["kernels"] == want
+        assert rep.flops > 0 and rep.bytes_accessed > 0

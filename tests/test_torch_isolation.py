@@ -42,6 +42,33 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
     assert n >= 20, out.stdout          # every module of the port loaded
 
 
+BLOCKED = r"""
+import sys
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+            raise ImportError(f"blocked: {name}")
+sys.meta_path.insert(0, Block())
+import repro_torch.core.fidelity, repro_torch.core.op_cost
+from repro_torch.kernels.flash_attention import ops
+from repro_torch.kernels.moe_mlp import ops
+from repro_torch.kernels.quantize import ops
+from repro_torch.kernels.rwkv6_wkv import ops
+print("OK", sorted(n for n in sys.modules if n.startswith("repro_torch.core")))
+"""
+
+
+def test_fidelity_and_kernel_ops_import_with_jax_and_repro_blocked():
+    """The fidelity layer and the kernels' custom ops import with every
+    import of ``jax`` and ``repro`` made to fail."""
+    out = subprocess.run(
+        [sys.executable, "-c", BLOCKED], capture_output=True, text=True,
+        timeout=120, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert out.returncode == 0, out.stderr
+    assert ("OK ['repro_torch.core', 'repro_torch.core.fidelity', "
+            "'repro_torch.core.op_cost']") in out.stdout, out.stdout
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)
 def test_source_has_no_jax_or_repro_import(path):
     for node in ast.walk(ast.parse(path.read_text())):
