@@ -5,12 +5,15 @@
     python3 chip_smoke.py --kernel-times [--src DIR]
     python3 chip_smoke.py --path-times [--src DIR]
 
-Four paths, each at full width with random weights from --seed, in bf16:
+Five paths, each at full width with random weights from --seed, in bf16:
 stablelm-1.6b served (dense; prefill attention in the flash-attention
 kernel), olmoe-1b-7b served (MoE; the same attention kernel, and the
 expert FFN in the moe_mlp kernel), stablelm-1.6b trained (AdamW with int8
-gradient compression, whose quantization is the quantize kernel), and
-rwkv6-7b served (RWKV-6; the time mix's recurrence in the wkv6 kernel).
+gradient compression, whose quantization is the quantize kernel),
+rwkv6-7b served (RWKV-6; the time mix's recurrence in the wkv6 kernel),
+and jamba-v0.1-52b served at one period of its 8-layer pattern (Mamba,
+attention and MoE; the attention layer's prefill in the flash kernel,
+every MoE FFN in moe_mlp, the Mamba scan in plain PyTorch as in JAX).
 Phases, each of which raises on failure (the script then exits non-zero):
 
 1. card     -- the card's name and power limit (nvidia-smi), torch and CUDA
@@ -86,9 +89,25 @@ Phases, each of which raises on failure (the script then exits non-zero):
                the prefills of stablelm-1.6b (24 flash ops), olmoe-1b-7b
                (16 flash and 16 moe_mlp), rwkv6-7b (32 wkv6) and
                deepseek-67b (95 flash; its 134 GB of bf16 params never
-               exist), and the train cell's step (15 quantize ops, no
-               forward-only kernel): no launch, no device memory, each
-               total beside the analytic 2 N tokens plus attention
+               exist), jamba-v0.1-52b at all 32 layers (4 flash and 16
+               moe_mlp; 104 GB of bf16 params never exist), and the
+               train cell's step (15 quantize ops, no forward-only
+               kernel): no launch, no device memory, each total beside
+               the analytic 2 N tokens plus attention (and the Mamba
+               recurrence)
+17. jamba  -- everything before freed; jamba-v0.1-52b at full width cut to
+               one period (8 of its 32 layers: 52 B parameters do not fit
+               one card), drawn in f32 and cast to bf16 leaf by leaf (the
+               init's peak printed); phase 4 for it with both the flash
+               and the moe_mlp wrappers replaced by their plain versions;
+               a prefill of 2047 tokens and one decode step against a
+               prefill of 2048 (the conv and ssm state handoff, dropless
+               routing); phase 5 (exactly 8 flash launches, none in a
+               decode step, and 4 moe_mlp launches per prefill and per
+               decode step); flash at its attention shape (GQA 32/8,
+               d=128) against SDPA and moe_mlp at its decode shape (G=4,
+               C=1); the plain Mamba scan's peak memory and time at 2048
+               tokens; then phase 7 for it, with the scan's device time
 
 Every kernel's bound is its ``cost`` (flops, bytes) in its ``ops.py``, the
 definition the dry run's kernel ops are costed by.  It prints the fidelity
@@ -201,6 +220,19 @@ QUANT_SIZES = [256, 1000, 4096, 65536, 1, 77, 3 * 256 + 5, 1000003]
 # NativeBackend's timed calls after its warm-up
 FIDELITY_B, FIDELITY_S, FIDELITY_ITERS = 1, 2048, 5
 DENSE_67B = "deepseek-67b"
+# jamba-v0.1-52b: one period of its 8-layer pattern on the card (13.3 B
+# params, 26.5 GB in bf16, 53.1 GB in f32 at init); all 32 layers only
+# in the dry run
+JAMBA_ARCH, JAMBA_PERIODS = "jamba-v0.1-52b", 1
+JAMBA_ATTN_SHAPE = dict(b=1, s=2048, h=32, kvh=8, d=128)
+JAMBA_MOE_DECODE = MOE_LARGE_F[1]              # G=4 C=1, E=16, F=14336
+# jamba's model phase and handoff: the kernel and plain paths differ in
+# the order of f32 sums inside attention and the expert FFN, which flips
+# bf16 roundings by one ulp; 8 layers of Mamba state carry the flips.
+# The handoff's decode step runs the one-token recurrence where the
+# longer prefill runs the chunked scan.  5% of the largest logit is many
+# such ulps; a wrong state, mask or expert moves logits by their scale.
+JAMBA_LOGIT_RTOL = 0.05
 
 
 def check(cond: bool, msg: str) -> None:
@@ -408,11 +440,12 @@ def phase_sweep(torch, ops) -> None:
             check(ok, f"kernel disagrees with its plain version ({case})")
 
 
-def phase_model(torch, np, cfg, model, params, seed: int, module, name: str,
-                plain, rtol: float) -> None:
+def phase_model(torch, np, cfg, model, params, seed: int, swaps,
+                rtol: float) -> None:
     """A 2048-token prefill through the kernel path, then through the same
-    model with the kernel's wrapper ``module.<name>`` replaced by its
-    plain version, here only; the last position's logits compared."""
+    model with each kernel's wrapper ``module.<name>`` of ``swaps``
+    (``(module, name, plain)``) replaced by its plain version, here only;
+    the last position's logits compared."""
     from repro_torch.models.layers import padded_vocab
     prompt = np.random.default_rng(seed).integers(0, cfg.vocab_size, 2048)
     tokens = torch.as_tensor(prompt, device="cuda")[None]
@@ -420,13 +453,16 @@ def phase_model(torch, np, cfg, model, params, seed: int, module, name: str,
     logits_k, _ = model.prefill(params, {"tokens": tokens})
     torch.cuda.synchronize()
     t_k = time.perf_counter() - t0
-    kernel_fn = getattr(module, name)
-    setattr(module, name, plain)
+    kernel_fns = [getattr(module, name) for module, name, _ in swaps]
+    for module, name, plain in swaps:
+        setattr(module, name, plain)
     try:
         logits_p, _ = model.prefill(params, {"tokens": tokens})
         torch.cuda.synchronize()
     finally:
-        setattr(module, name, kernel_fn)
+        for (module, name, _), fn in zip(swaps, kernel_fns):
+            setattr(module, name, fn)
+    name = " and ".join(name for _, name, _ in swaps)
     lk, lp = logits_k[0, -1].float(), logits_p[0, -1].float()
     want_shape = (1, 1, padded_vocab(cfg))
     check(tuple(logits_k.shape) == want_shape,
@@ -444,6 +480,16 @@ def phase_model(torch, np, cfg, model, params, seed: int, module, name: str,
     check(int(lk.argmax()) == int(lp.argmax()), "argmax differs")
 
 
+def layer_plan(cfg):
+    """(mixer kind of every layer, number of MoE layers), as the port's
+    decoder runs them: a period-1 arch builds and applies every layer as
+    layer 0, a hybrid arch each position of its period as itself."""
+    from repro_torch.models.transformer import layer_kind, period
+    pos = [i % period(cfg) for i in range(cfg.n_layers)]
+    return ([layer_kind(cfg, p) for p in pos],
+            sum(cfg.is_moe_layer(p) for p in pos))
+
+
 def serve_lengths(rng):
     """The serve run's prompt lengths, the first draw of its generator."""
     return rng.integers(128, 2049, SERVE_REQUESTS)
@@ -453,8 +499,9 @@ def phase_serve(torch, np, cfg, model, params, counters, seed: int,
                 card: str):
     """The main path: every launch count set to 0 just before the serve
     run and read just after.  Each prefill launches the flash kernel once
-    per layer; an MoE arch launches moe_mlp once per layer of every
-    prefill and every decode step, a dense arch never."""
+    per attention layer and wkv6 once per RWKV layer; moe_mlp runs once
+    per MoE layer of every prefill and every decode step; no other kernel
+    runs in a decode step."""
     from repro_torch.serve import BatchServer, Request
     rng = np.random.default_rng(seed)
     lens = serve_lengths(rng)
@@ -486,12 +533,11 @@ def phase_serve(torch, np, cfg, model, params, counters, seed: int,
                                           f"tokens")
         check(all(0 <= t < cfg.vocab_size for t in r.output),
               f"rid {r.rid}: token out of vocab")
-    per_prefill = cfg.n_layers * SERVE_REQUESTS
-    moe, rwkv = cfg.family == "moe", cfg.family == "ssm"
-    moe_decode = cfg.n_layers * srv.decode_steps if moe else 0
-    want = {"flash_attention": 0 if rwkv else per_prefill,
-            "moe_mlp": per_prefill + moe_decode if moe else 0,
-            "quantize": 0, "wkv6": per_prefill if rwkv else 0}
+    kinds, n_moe = layer_plan(cfg)
+    moe_decode = n_moe * srv.decode_steps
+    want = {"flash_attention": kinds.count("attn") * SERVE_REQUESTS,
+            "moe_mlp": n_moe * SERVE_REQUESTS + moe_decode,
+            "quantize": 0, "wkv6": kinds.count("rwkv") * SERVE_REQUESTS}
     want_decode = {n: 0 for n in counters}
     want_decode["moe_mlp"] = moe_decode
     for n, got in launches.items():
@@ -523,11 +569,16 @@ def phase_serve(torch, np, cfg, model, params, counters, seed: int,
 
 
 def phase_timing(torch, ops, shape):
+    """The flash kernel, its plain version and scaled_dot_product_attention
+    (``enable_gqa`` where the kv heads are fewer) on one bf16 input of
+    ``shape`` (b, s, h, d and, for GQA, kvh), causal."""
     import torch.nn.functional as F
     b, s, h, d = (shape[k] for k in "bshd")
+    kvh = shape.get("kvh", h)
     gen = torch.Generator(device="cuda").manual_seed(2)
-    q, k, v = (torch.randn(b, s, h, d, generator=gen, device="cuda")
-               .to(torch.bfloat16) for _ in range(3))
+    q = torch.randn(b, s, h, d, generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn(b, s, kvh, d, generator=gen, device="cuda")
+            .bfloat16() for _ in range(2))
     got = ops.flash_attention(q, k, v)
     want = ops.flash_attention_plain(q, k, v).float()
     diff = (got.float() - want).abs()
@@ -537,11 +588,17 @@ def phase_timing(torch, ops, shape):
     ms = cuda_ms(lambda: ops.flash_attention(q, k, v))
     plain_ms = cuda_ms(lambda: ops.flash_attention_plain(q, k, v))
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    gqa = {"enable_gqa": True} if kvh != h else {}
+    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, **gqa)
+    check(bool((((lib.transpose(1, 2).float() - want).abs())
+                <= TOL["bfloat16"] * (1 + want.abs())).all()),
+          "scaled_dot_product_attention computes another function")
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True))
+        qt, kt, vt, is_causal=True, **gqa))
     flops, nbytes = ops.cost(q.shape, k.shape, q.dtype)
     bound_ms, bound_by = bound_of(flops, nbytes, PEAK_BF16_FLOPS)
-    print(f"timing b={b} s={s} h={h} d={d} bf16: kernel {ms:.4f} ms, plain "
+    print(f"timing b={b} s={s} h={h} kvh={kvh} d={d} bf16: kernel "
+          f"{ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
           f"({bound_by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB); "
           f"kernel at {flops / ms / 1e9:.2f} TFLOP/s; max_abs_err {err:.3e}")
@@ -588,11 +645,34 @@ def _busy_us(spans, lo: float, hi: float) -> float:
     return busy
 
 
-def phase_profile(torch, np, cfg, model, params, seed: int, card: str):
+def _scope_us(events, name: str) -> dict:
+    """Device time of the kernels launched inside the host spans named
+    ``name``, by the window kind of the launch: each launch's runtime
+    call and its kernel share a correlation id."""
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") == "user_annotation"
+                   and e["name"] == name)
+    corr = set()
+    for e in events:
+        if e.get("cat") == "cuda_runtime" and "correlation" in e.get(
+                "args", {}):
+            if any(a <= e["ts"] < b for a, b in spans):
+                corr.add(e["args"]["correlation"])
+    return {"us": sum(e["dur"] for e in events
+                      if e.get("cat") == "kernel"
+                      and e.get("args", {}).get("correlation") in corr),
+            "spans": len(spans)}
+
+
+def phase_profile(torch, np, cfg, model, params, seed: int, card: str,
+                  scopes=()):
     """Trace a serve run of PROFILE_REQUESTS requests and split its time
     into prefill and decode windows.  A window runs from the start of its
     step's span to the start of the next span, so it holds the step's host
-    work and the read-back that waits for the device."""
+    work and the read-back that waits for the device.  Each ``(label,
+    module, name)`` of ``scopes`` wraps ``module.<name>`` in a span of its
+    own for the run, and the device time of the kernels it launches is
+    printed as a share of the prefill windows' busy time."""
     from torch.profiler import ProfilerActivity, profile, record_function
     from repro_torch.serve import BatchServer, Request
     rng = np.random.default_rng(seed + 1)
@@ -609,12 +689,19 @@ def phase_profile(torch, np, cfg, model, params, seed: int, card: str):
         return step
     srv._prefill = spanned("prefill", srv._prefill)
     srv._decode = spanned("decode", srv._decode)
+    saved = [getattr(module, name) for _, module, name in scopes]
+    for (label, module, name), fn in zip(scopes, saved):
+        setattr(module, name, spanned(label, fn))
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        with record_function("serve"):
-            srv.serve(reqs)
-            torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function("serve"):
+                srv.serve(reqs)
+                torch.cuda.synchronize()
+    finally:
+        for (_, module, name), fn in zip(scopes, saved):
+            setattr(module, name, fn)
     events = _trace_events(prof)
     dev = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
                  if e.get("ph") == "X" and e.get("cat") in
@@ -659,6 +746,12 @@ def phase_profile(torch, np, cfg, model, params, seed: int, card: str):
             print(f"  {kind} {key} kernel {tot / 1e3 / steps:.4f} ms per "
                   f"step = {tot / max(busy[kind], 1e-9):.4f} of device busy "
                   f"time")
+    for label, _, _ in scopes:
+        sc = _scope_us(events, label)
+        print(f"  prefill {label}: {sc['spans']} spans, device "
+              f"{sc['us'] / 1e3 / n_pre:.4f} ms per prefill = "
+              f"{sc['us'] / max(busy['prefill'], 1e-9):.4f} of prefill "
+              f"device busy time [{card}]")
     print(f"profile {cfg.name}: prompts {sorted(int(n) for n in lens)}, "
           f"{PROFILE_NEW} new tokens each, {len(dev)} device events")
 
@@ -928,6 +1021,83 @@ def phase_rwkv_handoff(torch, np, cfg, model, params, seed: int, w_ops,
           f"{float(top2[0] - top2[1]):.4f}) [{card}]")
     check(err <= RWKV_LOGIT_RTOL * scale, "decode after prefill disagrees")
     check(int(lf.argmax()) == int(ls.argmax()), "handoff argmax differs")
+
+
+def phase_jamba_handoff(torch, np, cfg, params, seed: int, counters,
+                        card: str) -> None:
+    """The Mamba conv and ssm state handoff at full width: a prefill of
+    2047 tokens and one decode step (the one-token recurrence and the
+    KV-cache attention) against a prefill of 2048.  The MoE layers run
+    dropless here (capacity C = T): at the arch's capacity factor of 1.0
+    a 2048-token prefill drops tokens that a decode step, which never
+    drops, keeps, a difference of routing, not of the handoff.  The gap at
+    the arch's own capacity is printed beside it."""
+    import dataclasses
+    from repro_torch.models import build_model
+    prompt = np.random.default_rng(seed + 2).integers(0, cfg.vocab_size, 2048)
+    tokens = torch.as_tensor(prompt, device="cuda")[None]
+    gaps = {}
+    for label, cf in (("dropless", cfg.n_experts / cfg.top_k),
+                      ("capacity factor 1.0", cfg.capacity_factor)):
+        model = build_model(dataclasses.replace(cfg, capacity_factor=cf))
+        full, _ = model.prefill(params, {"tokens": tokens})
+        _, cache = model.prefill(params, {"tokens": tokens[:, :-1]},
+                                 seq_capacity=2048)
+        check(all(c["ssm"].dtype == torch.float32 for c in cache
+                  if "ssm" in c), "the ssm state is not f32")
+        n0 = {n: w.launches for n, w in counters.items()}
+        step, _ = model.decode(params, {"tokens": tokens[:, -1:]}, cache,
+                               2047)
+        torch.cuda.synchronize()
+        launched = {n: w.launches - n0[n] for n, w in counters.items()}
+        check(launched == {**{n: 0 for n in counters},
+                           "moe_mlp": layer_plan(cfg)[1]},
+              f"a decode step launched {launched}")
+        lf, ls = full[0, -1].float(), step[0, -1].float()
+        check(bool(torch.isfinite(ls).all()), "non-finite decode logits")
+        err, scale = float((lf - ls).abs().max()), float(lf.abs().max())
+        top2 = torch.topk(lf, 2).values
+        print(f"handoff {cfg.name} ({label}): prefill 2047 + one decode step "
+              f"against a prefill of 2048: max|dlogit|={err:.4e} vs "
+              f"max|logit|={scale:.4f}; argmax prefill {int(lf.argmax())} "
+              f"decode {int(ls.argmax())} (top-2 gap "
+              f"{float(top2[0] - top2[1]):.4f}) [{card}]")
+        gaps[label] = (err, scale, int(lf.argmax()) == int(ls.argmax()))
+    err, scale, same = gaps["dropless"]
+    check(err <= JAMBA_LOGIT_RTOL * scale,
+          f"decode after prefill disagrees ({err} > {JAMBA_LOGIT_RTOL} x "
+          f"{scale})")
+    check(same, "handoff argmax differs")
+
+
+def phase_mamba_scan(torch, cfg, params, card: str) -> dict:
+    """The plain Mamba scan of one layer at 2048 tokens and full width
+    (b=1, d_inner 8192, d_state 16): its peak device memory above its
+    inputs and its time.  Each 256-token chunk builds its own (1, 256,
+    8192, 16) f32 decay and drive, as the JAX scan body does."""
+    from repro_torch.models import mamba as mm
+    p = params["layers"][0]["mixer"]
+    p = {k: v[0] for k, v in p.items()}
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    xc = torch.randn(1, 2048, cfg.d_inner, generator=gen,
+                     device="cuda").bfloat16()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    y, h = mm.selective_scan_chunked(p, xc, cfg, remat=False)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    check(bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all()),
+          "non-finite scan output")
+    del y, h
+    ms = cuda_ms(lambda: mm.selective_scan_chunked(p, xc, cfg, remat=False),
+                 iters=5, warmup=1)
+    chunk_bytes = 256 * cfg.d_inner * cfg.d_state * 4
+    print(f"mamba scan s=2048 d_inner={cfg.d_inner} d_state={cfg.d_state} "
+          f"(chunks of 256, plain PyTorch): peak {peak / 2**20:.1f} MiB above "
+          f"its inputs ({peak / chunk_bytes:.2f} x one chunk's f32 decay), "
+          f"{ms:.3f} ms per layer [{card}]")
+    return {"peak_mib": peak / 2**20, "ms": ms}
 
 
 def _wkv_bound(w_ops, shape, dtype):
@@ -1360,45 +1530,49 @@ def analytic_flops(cfg, specs, b: int, s: int, train: bool) -> float:
     """2 N tokens plus attention: N the parameters a token's products read
     (a MoE layer's experts at top_k of n_experts; the unembedding for the
     last position only in a prefill; the embedding is a gather), attention
-    2 b s^2 h d a layer (the causal half of q k^T and p v), or an RWKV
-    layer's time mix 4 n^2 b s h; a train step 4x that (the forward, its
+    2 b s^2 h d an attention layer (the causal half of q k^T and p v), an
+    RWKV layer's time mix 4 n^2 b s h, a Mamba layer's recurrence
+    4 d_inner d_state b s (h = decay h + drive and y = h . C, two flops
+    each per state element); a train step 4x that (the forward, its
     recomputation, and a backward of twice the forward)."""
     import math
-    layers = 0.0
-    for path, spec in _spec_items(specs["layers"]):
-        n = math.prod(spec.shape)
-        if cfg.family == "moe" and path[-1] in ("wi", "wg", "wo") \
-                and "ffn" in path:
-            n *= cfg.top_k / cfg.n_experts
-        layers += n
+    layers = _matmul_params(cfg, specs["layers"])
     vp = specs["embed"].get("head", specs["embed"]["table"]).shape
     head = math.prod(vp)
     tokens = b * s
     total = 2 * layers * tokens + 2 * head * (tokens if train else b)
-    if cfg.family == "ssm":
-        h, n = cfg.n_rwkv_heads, cfg.rwkv_head_size
-        total += cfg.n_layers * 4 * n * n * b * s * h
-    else:
-        total += cfg.n_layers * 2 * b * s * s * cfg.n_heads * cfg.head_dim
+    kinds, _ = layer_plan(cfg)
+    total += kinds.count("rwkv") * 4 * cfg.rwkv_head_size ** 2 * tokens \
+        * cfg.n_rwkv_heads
+    total += kinds.count("attn") * 2 * b * s * s * cfg.n_heads * cfg.head_dim
+    total += kinds.count("mamba") * 4 * cfg.d_inner * cfg.d_state * tokens
     return total * (4 if train else 1)
 
 
-def _spec_items(tree, path=()):
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from _spec_items(v, path + (k,))
-    else:
-        yield path, tree
+def _matmul_params(cfg, tree) -> float:
+    """Parameters of a layers tree (dicts, and a hybrid arch's tuple), a
+    MoE FFN's experts (a dict with a router) at top_k of n_experts."""
+    import math
+    if type(tree) is tuple:                   # a TensorSpec is a leaf
+        return sum(_matmul_params(cfg, t) for t in tree)
+    if not isinstance(tree, dict):
+        return float(math.prod(tree.shape))
+    share = cfg.top_k / cfg.n_experts if "router" in tree else 1.0
+    return sum(_matmul_params(cfg, v) * (share if k in ("wi", "wg", "wo")
+                                         else 1.0)
+               for k, v in tree.items())
 
 
 def phase_fidelity_dryruns(torch, counters, seed: int, card: str) -> dict:
     """DryRunBackend on fake CUDA tensors at full width, params included
     (their specs from an init on fake tensors): stablelm-1.6b's,
-    olmoe-1b-7b's, rwkv6-7b's and deepseek-67b's prefill at b=1 s=2048
-    and the train cell's step (stablelm-1.6b, 4 x 2048, grad_compress).
+    olmoe-1b-7b's, rwkv6-7b's, deepseek-67b's and jamba-v0.1-52b's (all
+    32 layers) prefill at b=1 s=2048 and the train cell's step
+    (stablelm-1.6b, 4 x 2048, grad_compress).
     Each leaves every launch count and the card's allocated memory as
     they were, and reaches each kernel's custom op exactly once per layer
-    (the train step: once per parameter leaf, quantize only)."""
+    that runs it (the train step: once per parameter leaf, quantize
+    only)."""
     from repro_torch.configs import get_config
     from repro_torch.core.fidelity import (DryRunBackend, StepProgram,
                                            TensorSpec, eval_shape, specs_of)
@@ -1407,14 +1581,14 @@ def phase_fidelity_dryruns(torch, counters, seed: int, card: str) -> dict:
     from repro_torch.train import batch_to, build_train_step, init_train_state
     tokens = {"tokens": TensorSpec((FIDELITY_B, FIDELITY_S), torch.int64)}
     runs = []
-    for arch in (ARCH, MOE_ARCH, RWKV_ARCH, DENSE_67B):
+    for arch in (ARCH, MOE_ARCH, RWKV_ARCH, DENSE_67B, JAMBA_ARCH):
         cfg = get_config(arch)
         model = build_model(cfg)
         specs = eval_shape(lambda: model.load(model.init(seed, "cpu"), "cpu"))
-        want = ({"wkv6": cfg.n_layers} if cfg.family == "ssm" else
-                {"flash_attention": cfg.n_layers,
-                 **({"expert_mlp": cfg.n_layers} if cfg.family == "moe"
-                    else {})})
+        kinds, n_moe = layer_plan(cfg)
+        want = {op: n for op, n in (("flash_attention", kinds.count("attn")),
+                                    ("expert_mlp", n_moe),
+                                    ("wkv6", kinds.count("rwkv"))) if n}
         runs.append((f"{arch} prefill b={FIDELITY_B} s={FIDELITY_S}", cfg,
                      StepProgram(f"{arch} prefill", build_prefill_step(model),
                                  (specs, tokens), device="cuda"),
@@ -1451,6 +1625,7 @@ def phase_fidelity_dryruns(torch, counters, seed: int, card: str) -> dict:
                       if n.startswith("repro_torch."))
         out[label] = dict(flops=rep.flops, bytes=rep.bytes_accessed,
                           analytic_flops=analytic, kernels=want,
+                          unknown_ops=rep.detail["unknown_ops"],
                           kernel_flops=k_flops, kernel_bytes=k_bytes,
                           ops=len(rep.detail["ops"]),
                           argument_bytes=rep.memory["argument_bytes"],
@@ -1460,7 +1635,8 @@ def phase_fidelity_dryruns(torch, counters, seed: int, card: str) -> dict:
               f"{analytic / 1e12:.4f}), {rep.bytes_accessed / 1e9:.3f} GB; "
               f"the kernel ops {k_flops / rep.flops:.4f} of the flops and "
               f"{k_bytes / rep.bytes_accessed:.4f} of the bytes; "
-              f"{len(rep.detail['ops'])} ops, kernel ops {want}, arguments "
+              f"{len(rep.detail['ops'])} ops, kernel ops {want}, ops with no "
+              f"cost rule {rep.detail['unknown_ops']}, arguments "
               f"{rep.memory['argument_bytes'] / 2**30:.2f} GiB never "
               f"allocated; {rep.wall_s:.1f} s on the host; no launch, device "
               f"memory unchanged [{card}]")
@@ -1550,8 +1726,9 @@ def main() -> int:
     print(f"model: {ARCH} params drawn and cast to bf16 in "
           f"{time.perf_counter() - t0:.1f} s, "
           f"{sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B params")
-    phase_model(torch, np, cfg, model, params, args.seed, layers,
-                "flash_attention", ops.flash_attention_plain, LOGIT_RTOL)
+    phase_model(torch, np, cfg, model, params, args.seed,
+                [(layers, "flash_attention", ops.flash_attention_plain)],
+                LOGIT_RTOL)
 
     # 5. serve: the main path, launches counted around it alone
     dense_launches, lens = phase_serve(torch, np, cfg, model, params,
@@ -1582,8 +1759,9 @@ def main() -> int:
           f"{sum(t.numel() for t in _leaves(mparams)) / 1e9:.3f} B params, "
           f"peak device memory of the init "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    phase_model(torch, np, mcfg, mmodel, mparams, args.seed, moe,
-                "expert_mlp", moe_ops.expert_mlp_plain, MOE_LOGIT_RTOL)
+    phase_model(torch, np, mcfg, mmodel, mparams, args.seed,
+                [(moe, "expert_mlp", moe_ops.expert_mlp_plain)],
+                MOE_LOGIT_RTOL)
     moe_launches, _ = phase_serve(torch, np, mcfg, mmodel, mparams, counters,
                                   args.seed, card)
     t_olmoe = phase_timing(torch, ops, MOE_ATTN_SHAPE)
@@ -1634,8 +1812,8 @@ def main() -> int:
 
     def chunked(r, k, v, lw, u, state0=None, chunk=RWKV_CHUNK):
         return rw.wkv6_chunked_plain(r, k, v, lw, u, state0, chunk)
-    phase_model(torch, np, rcfg, rmodel, rparams, args.seed, rw, "wkv6_state",
-                chunked, RWKV_LOGIT_RTOL)
+    phase_model(torch, np, rcfg, rmodel, rparams, args.seed,
+                [(rw, "wkv6_state", chunked)], RWKV_LOGIT_RTOL)
     phase_rwkv_handoff(torch, np, rcfg, rmodel, rparams, args.seed, w_ops,
                        card)
     rwkv_launches, rlens = phase_serve(torch, np, rcfg, rmodel, rparams,
@@ -1658,13 +1836,20 @@ def main() -> int:
         "native_ms": native, "dryrun": dryruns,
         "shape": f"b={FIDELITY_B} s={FIDELITY_S}"}}))
 
+    # 17. jamba-v0.1-52b served at one period, everything before freed
+    gc.collect()
+    torch.cuda.empty_cache()
+    jcfg, jamba_launches, t_jamba, td_jamba, scan = phase_jamba(
+        torch, np, counters, args.seed, card)
+
     by_path = {ARCH: dense_launches, MOE_ARCH: moe_launches,
                f"{ARCH} train": train_launches,
                f"{MOE_ARCH} train ({MOE_TRAIN_LAYERS} layers)":
                    moe_train_launches,
                RWKV_ARCH: rwkv_launches,
                f"{RWKV_ARCH} train ({RWKV_TRAIN_LAYERS} layers)":
-                   rwkv_train_launches}
+                   rwkv_train_launches,
+               f"{JAMBA_ARCH} ({jcfg.n_layers} layers)": jamba_launches}
     rows = [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -1677,15 +1862,22 @@ def main() -> int:
                   .format(**MAIN_SHAPE),
          "olmoe": {**t_olmoe,
                    "shape": "b={b} s={s} h={h} d={d} bf16 (olmoe-1b-7b "
-                            "prefill)".format(**MOE_ATTN_SHAPE)}},
+                            "prefill)".format(**MOE_ATTN_SHAPE)},
+         "jamba": {**t_jamba,
+                   "shape": "b={b} s={s} h={h} kvh={kvh} d={d} bf16 "
+                            "(jamba-v0.1-52b prefill)"
+                            .format(**JAMBA_ATTN_SHAPE)}},
         {"name": "moe_mlp", "route": "cuda",
          "source": "src/repro_torch/kernels/moe_mlp/csrc/moe_mlp.cu",
          "replaces": "src/repro/kernels/moe_mlp/kernel.py:31",
-         "launches": moe_launches["moe_mlp"],
+         "launches": sum(v["moe_mlp"] for v in by_path.values()),
          "launches_by_path": {a: v["moe_mlp"] for a, v in by_path.items()},
          **tm, "shape": _moe_shape(MOE_PREFILL) + " (prefill)",
          "decode": {**td, "shape": _moe_shape(MOE_DECODE)},
-         "large_d_ff": t_large_f},
+         "large_d_ff": t_large_f,
+         "jamba_decode": {**td_jamba,
+                          "shape": _moe_shape(JAMBA_MOE_DECODE)
+                          + " (jamba-v0.1-52b decode)"}},
         {"name": "quantize", "route": "cuda",
          "source": "src/repro_torch/kernels/quantize/csrc/quantize.cu",
          "replaces": "src/repro/kernels/quantize/kernel.py:19",
@@ -1699,7 +1891,7 @@ def main() -> int:
          "launches_by_path": {a: v["wkv6"] for a, v in by_path.items()},
          **tw},
     ]
-    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"kernels": rows, "mamba_scan": scan}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1707,16 +1899,82 @@ def main() -> int:
     return 0
 
 
+def phase_jamba(torch, np, counters, seed: int, card: str):
+    """Phase 17: jamba-v0.1-52b at full width cut to JAMBA_PERIODS periods,
+    drawn in f32 and cast to bf16 leaf by leaf; phases 4 (both kernels'
+    wrappers swapped for their plain versions), the handoff, 5, the
+    kernels at its shapes, the plain scan's memory, and 7 with the scan's
+    device time.  Returns (its config, launches of the serve run, flash
+    and moe_mlp decode times, the scan's peak and time)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.moe_mlp import ops as moe_ops
+    from repro_torch.models import build_model, layers, mamba, moe
+    full = get_config(JAMBA_ARCH)
+    cfg = dataclasses.replace(full, n_layers=JAMBA_PERIODS * full.attn_every)
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(seed, "cuda")
+    torch.cuda.synchronize()
+    f32_peak = torch.cuda.max_memory_allocated()
+    _cast_leaf_by_leaf(torch, params, torch.bfloat16)
+    params = model.load(params, "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"model: {JAMBA_ARCH} at {cfg.n_layers} of {full.n_layers} layers "
+          f"drawn in f32 and cast to bf16 leaf by leaf in "
+          f"{time.perf_counter() - t0:.1f} s, {n_params / 1e9:.3f} B params "
+          f"(ArchConfig.param_counts: "
+          f"{cfg.param_counts()['total'] / 1e9:.3f} B), peak device memory "
+          f"of the f32 draw {f32_peak / 2**30:.2f} GiB, of the init "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, bf16 params "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB [{card}]")
+    phase_model(torch, np, cfg, model, params, seed,
+                [(layers, "flash_attention", ops.flash_attention_plain),
+                 (moe, "expert_mlp", moe_ops.expert_mlp_plain)],
+                JAMBA_LOGIT_RTOL)
+    phase_jamba_handoff(torch, np, cfg, params, seed, counters, card)
+    launches, _ = phase_serve(torch, np, cfg, model, params, counters, seed,
+                              card)
+    t_flash = phase_timing(torch, ops, JAMBA_ATTN_SHAPE)
+    t_decode = phase_moe_timing(torch, moe_ops, JAMBA_MOE_DECODE,
+                                f"{JAMBA_ARCH} decode", card)
+    scan = phase_mamba_scan(torch, cfg, params, card)
+    phase_profile(torch, np, cfg, model, params, seed, card,
+                  scopes=[("mamba_scan", mamba, "selective_scan_chunked")])
+    return cfg, launches, t_flash, t_decode, scan
+
+
 def _moe_shape(shape) -> str:
     return "G={} E={} C={} D={} F={} bf16".format(*shape)
 
 
 def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
+    """The leaves of dicts and plain tuples (a ``TensorSpec`` is a leaf)."""
+    if isinstance(tree, dict) or type(tree) is tuple:
+        for v in (tree.values() if isinstance(tree, dict) else tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+def _cast_leaf_by_leaf(torch, tree, dtype) -> None:
+    """Cast every float leaf of ``tree`` (dicts, and a hybrid arch's tuple
+    of them) to ``dtype`` in its dict, one leaf at a time, so that each
+    old leaf is freed once its copy exists: the peak is the tree plus one
+    leaf, not the tree in both dtypes."""
+    if type(tree) is tuple:
+        for t in tree:
+            _cast_leaf_by_leaf(torch, t, dtype)
+        return
+    for k, v in tree.items():
+        if isinstance(v, dict) or type(v) is tuple:
+            _cast_leaf_by_leaf(torch, v, dtype)
+        elif v.is_floating_point():
+            tree[k] = v.to(dtype)
+            del v
 
 
 if __name__ == "__main__":

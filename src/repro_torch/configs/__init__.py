@@ -13,6 +13,7 @@ from repro_torch.configs.base import (  # noqa: F401
     ArchConfig, ShapeConfig, SHAPES, smoke, smoke_shape,
 )
 from repro_torch.configs.deepseek_67b import CONFIG as _deepseek
+from repro_torch.configs.jamba_v0_1_52b import CONFIG as _jamba
 from repro_torch.configs.minicpm_2b import CONFIG as _minicpm
 from repro_torch.configs.mixtral_8x22b import CONFIG as _mixtral
 from repro_torch.configs.nemotron_4_15b import CONFIG as _nemotron
@@ -22,18 +23,16 @@ from repro_torch.configs.stablelm_1_6b import CONFIG as _stablelm
 
 REGISTRY: Dict[str, ArchConfig] = {
     c.name: c for c in (_stablelm, _deepseek, _minicpm, _nemotron, _olmoe,
-                        _mixtral, _rwkv)}
+                        _mixtral, _rwkv, _jamba)}
 
 # what a later slice brings, by ROADMAP.md Queue 1 item
 ROADMAP: Dict[str, str] = {
-    "hybrid": "ROADMAP.md Queue 1 item 5 (Mamba and hybrid slice)",
     "vlm": "ROADMAP.md Queue 1 item 6 (VLM and audio slice)",
     "audio": "ROADMAP.md Queue 1 item 6 (VLM and audio slice)",
 }
 # archs of the JAX registry the port does not run yet
 PENDING: Dict[str, str] = {
-    "jamba-v0.1-52b": ROADMAP["hybrid"], "qwen2-vl-7b": ROADMAP["vlm"],
-    "whisper-small": ROADMAP["audio"],
+    "qwen2-vl-7b": ROADMAP["vlm"], "whisper-small": ROADMAP["audio"],
 }
 
 

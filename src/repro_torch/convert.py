@@ -4,7 +4,8 @@
 ``repro.models.api.Model.init`` returns, with its leaves turned into
 numpy arrays (``jax.tree.map(np.asarray, params)``), and returns the
 port's parameter tree: the same key paths and the same stacked layer
-axis, leaf for leaf.  ``train_state_from_jax(state, cfg, opts, device)``
+axis (a hybrid arch's ``layers``: a tuple of per-position trees), leaf
+for leaf.  ``train_state_from_jax(state, cfg, opts, device)``
 does the same for a train state of ``repro.train.step``.  Neither
 imports JAX: the caller does the numpy conversion.
 """
@@ -30,6 +31,14 @@ def _convert(tree: Any, want: Any, path: str, device, dtype) -> Any:
                              f"{sorted(want)}")
         return {k: _convert(tree[k], want[k], f"{path}/{k}", device, dtype)
                 for k in want}
+    if type(want) is tuple:            # a hybrid arch's per-position layers
+        if not isinstance(tree, (tuple, list)) or len(tree) != len(want):
+            got = (len(tree) if isinstance(tree, (tuple, list))
+                   else type(tree))
+            raise ValueError(f"{path or '/'}: {got} entries, want a tuple "
+                             f"of {len(want)}")
+        return tuple(_convert(t, w, f"{path}/{i}", device, dtype)
+                     for i, (t, w) in enumerate(zip(tree, want)))
     arr = np.asarray(tree)
     if tuple(arr.shape) != tuple(want.shape):
         raise ValueError(f"{path}: shape {arr.shape}, want "

@@ -163,7 +163,9 @@ class DryRunBackend(Backend):
     ``alias_bytes`` and ``code_bytes`` stay 0.0 (eager PyTorch has no
     compiled module to read them from).  ``detail["ops"]`` is the op
     stream ``(name, flops, bytes)``, the analogue of ``detail["hlo"]``;
-    ``detail["kernels"]`` counts each kernel's calls.
+    ``detail["kernels"]`` counts each kernel's calls;
+    ``detail["unknown_ops"]`` the calls of ops that ``op_cost`` has no
+    flops rule for (costed at 0 flops and their bytes).
 
     The step may not read a value back to the host (``.item()``,
     ``int(tensor)``): a fake tensor has none.  The train and prefill
@@ -197,6 +199,7 @@ class DryRunBackend(Backend):
                       "code_bytes": 0.0}
         rep.detail["ops"] = cost.ops
         rep.detail["kernels"] = dict(cost.kernels)
+        rep.detail["unknown_ops"] = dict(cost.unknown)
         return rep
 
 

@@ -53,6 +53,7 @@ _PER_ELEMENT = {
 _NO_FLOPS = {
     aten._to_copy, aten.copy_, aten.clone, aten.fill_, aten.zero_,
     aten.zeros, aten.ones, aten.full, aten.zeros_like, aten.ones_like,
+    aten.new_zeros, aten.new_ones, aten.new_full,
     aten.full_like, aten.scalar_tensor, aten.arange, aten.cat, aten.stack,
     aten.index, aten.index_select, aten.gather, aten.embedding,
     aten.index_put, aten.index_put_, aten._index_put_impl_,
@@ -86,6 +87,19 @@ def _dot_flops(packet, args, out: torch.Tensor) -> float:
 
 _DOTS = {aten.mm, aten.bmm, aten.addmm, aten.baddbmm, aten.mv, aten.addmv,
          aten.dot}
+
+
+def known(func) -> bool:
+    """Whether ``op_cost`` has a rule for ``func``'s flops: a kernel, a
+    dot, a listed op, a reduction or a pointwise op.  Any other op that
+    writes an output is costed at 0 flops and its bytes, and counted in
+    ``CostMode.unknown``: reported, not guessed."""
+    packet = func.overloadpacket
+    return (func.namespace == "repro_torch" or func.is_view
+            or packet in _DOTS or packet in _PER_ELEMENT
+            or packet in _NO_FLOPS or packet in _FREE
+            or torch.Tag.reduction in func.tags
+            or torch.Tag.pointwise in func.tags)
 
 
 def op_cost(func, args, kwargs, out) -> Tuple[float, float]:
@@ -125,12 +139,15 @@ def op_cost(func, args, kwargs, out) -> Tuple[float, float]:
 class CostMode(TorchDispatchMode):
     """Costs every op dispatched inside it.  ``ops`` holds ``(name,
     flops, bytes)`` of each op that computes or moves something, in
-    order; ``kernels`` counts the calls of each of the port's kernels."""
+    order; ``kernels`` counts the calls of each of the port's kernels;
+    ``unknown`` the calls of ops with an output that ``op_cost`` has no
+    flops rule for (``known``)."""
 
     def __init__(self):
         super().__init__()
         self.ops: List[Tuple[str, float, float]] = []
         self.kernels: Counter = Counter()
+        self.unknown: Counter = Counter()
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -138,6 +155,8 @@ class CostMode(TorchDispatchMode):
         flops, nbytes = op_cost(func, args, kwargs, out)
         if func.namespace == "repro_torch":
             self.kernels[func.overloadpacket.__name__] += 1
+        elif _tensors(out) and not known(func):
+            self.unknown[str(func)] += 1
         if flops or nbytes:
             self.ops.append((str(func), flops, nbytes))
         return out

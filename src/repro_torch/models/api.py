@@ -6,7 +6,11 @@
     prefill(params, batch, ...)               -> (last_logits, cache)
     decode(params, batch, cache, cur_len)     -> (logits, cache), in place
     init_cache(batch, seq_len, device)        -> zero stacked cache: bf16 KV,
-                                                 or RWKV states (WKV in f32)
+                                                 or RWKV states (WKV in f32);
+                                                 a hybrid arch's is a tuple of
+                                                 per-position dicts: KV, or
+                                                 Mamba conv (bf16) and ssm
+                                                 (f32) states
 
 Every method that creates tensors runs on ``cuda`` unless the caller
 passes ``device="cpu"``.  ``train_logits`` takes the f32 master

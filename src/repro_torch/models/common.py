@@ -1,9 +1,16 @@
 """Parameter-tree helpers of the port.
 
 Parameters are nested dicts of tensors with the JAX package's key paths
-(``embed/table``, ``layers/mixer/wq``, ...).  Each leaf is drawn through
+(``embed/table``, ``layers/mixer/wq``, ...); a hybrid arch's ``layers``
+is a tuple of per-position trees, as in JAX.  Each leaf is drawn through
 ``param`` from an explicit ``torch.Generator``; the logical sharding axes
 of the JAX tree are not kept (sharding is a later slice).
+
+The tree walks below treat dicts and plain tuples as nodes and anything
+else (a tensor, a ``TensorSpec``) as a leaf.  They visit tuples in index
+order and dicts in sorted-key order, which is ``jax.tree.leaves`` order:
+sums over leaves (``global_norm``, the gradient list of a train step)
+then run in the JAX package's order.
 """
 
 from __future__ import annotations
@@ -13,7 +20,7 @@ from typing import Any, Callable, Dict, Iterator, NamedTuple, Optional, Tuple
 
 import torch
 
-Tree = Dict[str, Any]
+Tree = Any                  # nested dicts and tuples of tensors
 
 
 class TensorSpec(NamedTuple):
@@ -52,8 +59,11 @@ def stack_inits(init_fn: Callable[[torch.Generator], Tree],
     The layers are drawn one after another from ``gen`` and written into
     a stacked tree allocated up front, so the peak is the stack plus one
     layer (olmoe-1b-7b's f32 experts are 25.8 GB stacked; holding every
-    layer before stacking would double that)."""
+    layer before stacking would double that).  A stack of one (a hybrid
+    arch cut to one period) is a view of the one layer: no copy."""
     first = init_fn(gen)
+    if n == 1:
+        return map_leaves(lambda x: x.unsqueeze(0), first)
     out = map_leaves(lambda x: x.new_empty((n,) + tuple(x.shape)), first)
     map_leaves(lambda o, x: o[0].copy_(x), out, first)
     del first
@@ -62,11 +72,20 @@ def stack_inits(init_fn: Callable[[torch.Generator], Tree],
     return out
 
 
+def _is_tuple(tree: Any) -> bool:
+    """A plain tuple is a node; a named tuple (``TensorSpec``) a leaf."""
+    return type(tree) is tuple
+
+
 def map_leaves(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
-    """Apply ``fn`` leaf by leaf over trees of the same structure."""
+    """Apply ``fn`` leaf by leaf over trees of the same structure, in
+    ``leaves`` order."""
     if isinstance(tree, dict):
         return {k: map_leaves(fn, tree[k], *(r[k] for r in rest))
-                for k in tree}
+                for k in sorted(tree)}
+    if _is_tuple(tree):
+        return tuple(map_leaves(fn, t, *(r[i] for r in rest))
+                     for i, t in enumerate(tree))
     return fn(tree, *rest)
 
 
@@ -76,6 +95,9 @@ def leaves(tree: Tree) -> Iterator[torch.Tensor]:
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from leaves(tree[k])
+    elif _is_tuple(tree):
+        for t in tree:
+            yield from leaves(t)
     else:
         yield tree
 
@@ -83,12 +105,7 @@ def leaves(tree: Tree) -> Iterator[torch.Tensor]:
 def unflatten(tree: Tree, values) -> Tree:
     """A tree shaped like ``tree`` holding ``values`` in ``leaves`` order."""
     it = iter(values)
-
-    def build(t):
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        return next(it)
-    return build(tree)
+    return map_leaves(lambda _: next(it), tree)
 
 
 def cast(tree: Tree, dtype: torch.dtype,

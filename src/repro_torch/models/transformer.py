@@ -1,17 +1,23 @@
-"""Decoder LM assembly of the port: the dense, MoE and RWKV (``ssm``)
-families.
+"""Decoder LM assembly of the port: the dense, MoE, RWKV (``ssm``) and
+hybrid (Jamba: Mamba + attention + MoE) families.
 
 Mirrors ``repro.models.transformer``: parameters keep the stacked
 leading layer axis, and a Python loop over layers takes the place of
 ``lax.scan``.  MoE layers return the load-balance aux loss, which
 ``decoder_forward`` sums over layers as the JAX function does.  RWKV
 layers (time mix and channel mix, ``models/rwkv.py``) carry a recurrent
-state instead of a KV cache.  Three modes:
+state instead of a KV cache.  A hybrid arch repeats a period of
+``attn_every`` layers (Jamba: 8; attention at position ``attn_offset``,
+Mamba elsewhere, ``models/mamba.py``; MoE where ``is_moe_layer``): its
+parameters and caches are a tuple of one stacked tree per position,
+each stacked over the periods, and the loop runs period by period,
+position by position.  Three modes:
 
   train   -> logits over all positions, each layer checkpointed
              (recomputed in the backward pass, as ``jax.checkpoint``)
-  prefill -> logits at the last position + a stacked cache (KV, or the
-             RWKV states)
+  prefill -> logits at the last position + a stacked cache (KV, the
+             RWKV states, or per position KV or the Mamba conv and ssm
+             states)
   decode  -> one-token step that updates the stacked cache IN PLACE
 
 Other families raise ``NotImplementedError`` naming their ROADMAP item.
@@ -19,18 +25,19 @@ Other families raise ``NotImplementedError`` naming their ROADMAP item.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import ROADMAP
 from repro_torch.models import layers as ll
+from repro_torch.models import mamba as mm
 from repro_torch.models import moe as me
 from repro_torch.models import rwkv as rw
-from repro_torch.models.common import TensorSpec, cast, stack_inits
+from repro_torch.models.common import TensorSpec, cast, map_leaves, stack_inits
 
-FAMILIES = ("dense", "moe", "ssm")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 MODES = ("train", "prefill", "decode")
 
 
@@ -45,31 +52,61 @@ def check_family(cfg) -> None:
 # Init
 # ---------------------------------------------------------------------------
 
-def init_layer(gen: torch.Generator, cfg) -> Dict:
-    """One decoder layer (norms + attention + MLP or MoE, or norms + RWKV
-    time mix and channel mix).  The stacked layers share one structure,
-    so the JAX package builds and applies every one as layer 0
-    (``is_moe_layer(0)``); so does the port."""
+def layer_kind(cfg, layer_idx: int) -> str:
+    """"rwkv", "mamba" or "attn": the mixer of layer ``layer_idx`` (of a
+    hybrid arch, its position in the period)."""
     if cfg.family == "ssm":
+        return "rwkv"
+    if cfg.family == "hybrid" and not cfg.is_attn_layer(layer_idx):
+        return "mamba"
+    return "attn"
+
+
+def period(cfg) -> int:
+    """Layers per period: ``attn_every`` for a hybrid arch, else 1."""
+    return cfg.attn_every if cfg.family == "hybrid" else 1
+
+
+def init_layer(gen: torch.Generator, cfg, layer_idx: int = 0) -> Dict:
+    """One decoder layer (norms + attention or Mamba + MLP or MoE, or
+    norms + RWKV time mix and channel mix).  The stacked layers of a
+    period-1 arch share one structure, so the JAX package builds and
+    applies every one as layer 0 (``is_moe_layer(0)``); so does the port.
+    A hybrid arch builds each position of its period as its own layer."""
+    kind = layer_kind(cfg, layer_idx)
+    if kind == "rwkv":
         blk = rw.init_rwkv_block(gen, cfg)
         return {"norm1": ll.init_norm(gen, cfg, cfg.d_model),
                 "mixer": blk["time_mix"],
                 "norm2": ll.init_norm(gen, cfg, cfg.d_model),
                 "ffn": blk["channel_mix"]}
     norm1 = ll.init_norm(gen, cfg, cfg.d_model)
-    mixer = ll.init_attention(gen, cfg)
+    mixer = (ll.init_attention(gen, cfg) if kind == "attn"
+             else mm.init_mamba_block(gen, cfg))
     norm2 = ll.init_norm(gen, cfg, cfg.d_model)
-    ffn = (me.init_moe(gen, cfg) if cfg.is_moe_layer(0)
+    ffn = (me.init_moe(gen, cfg) if cfg.is_moe_layer(layer_idx)
            else ll.init_mlp(gen, cfg))
     return {"norm1": norm1, "mixer": mixer, "norm2": norm2, "ffn": ffn}
+
+
+def init_decoder_layers(gen: torch.Generator, cfg):
+    """Stacked layer params: one stacked tree, or for a hybrid arch a
+    tuple of per-position trees each stacked over the periods."""
+    if cfg.family == "hybrid":
+        n_periods = cfg.n_layers // period(cfg)
+        assert n_periods * period(cfg) == cfg.n_layers
+        return tuple(
+            stack_inits(lambda g, _pos=pos: init_layer(g, cfg, _pos), gen,
+                        n_periods)
+            for pos in range(period(cfg)))
+    return stack_inits(lambda g: init_layer(g, cfg), gen, cfg.n_layers)
 
 
 def init_lm(gen: torch.Generator, cfg) -> Dict:
     check_family(cfg)
     return {
         "embed": ll.init_embedding(gen, cfg),
-        "layers": stack_inits(lambda g: init_layer(g, cfg), gen,
-                              cfg.n_layers),
+        "layers": init_decoder_layers(gen, cfg),
         "final_norm": ll.init_norm(gen, cfg, cfg.d_model),
     }
 
@@ -84,27 +121,47 @@ def kv_capacity(cfg, seq_len: int) -> int:
     return seq_len
 
 
-def cache_spec(cfg, batch: int, seq_len: int,
-               dtype: torch.dtype = torch.bfloat16) -> Dict[str, TensorSpec]:
-    """Shapes and dtypes of the stacked decode cache: k and v
-    (n_layers, b, kvh, S, hd) in ``dtype``; for RWKV the token-shift
-    states (n_layers, b, 1, d) in ``dtype`` and the WKV state
-    (n_layers, b, h, n, n) in f32, as in JAX."""
-    check_family(cfg)
-    L = cfg.n_layers
-    if cfg.family == "ssm":
-        h, n = cfg.n_rwkv_heads, cfg.rwkv_head_size
-        shift = TensorSpec((L, batch, 1, cfg.d_model), dtype)
+def layer_cache_spec(cfg, layer_idx: int, n: int, batch: int, seq_len: int,
+                     dtype: torch.dtype) -> Dict[str, TensorSpec]:
+    """The cache of ``n`` stacked layers like layer ``layer_idx``: k and
+    v (n, b, kvh, S, hd) in ``dtype``; for RWKV the token-shift states
+    (n, b, 1, d) in ``dtype`` and the WKV state (n, b, h, hs, hs) in
+    f32; for Mamba the conv state (n, b, d_conv - 1, d_inner) in
+    ``dtype`` and the ssm state (n, b, d_inner, d_state) in f32, as in
+    JAX."""
+    kind = layer_kind(cfg, layer_idx)
+    if kind == "rwkv":
+        h, hs = cfg.n_rwkv_heads, cfg.rwkv_head_size
+        shift = TensorSpec((n, batch, 1, cfg.d_model), dtype)
         return {"shift_tm": shift, "shift_cm": shift,
-                "wkv": TensorSpec((L, batch, h, n, n), torch.float32)}
-    shp = (L, batch, cfg.n_kv_heads, kv_capacity(cfg, seq_len), cfg.head_dim)
+                "wkv": TensorSpec((n, batch, h, hs, hs), torch.float32)}
+    if kind == "mamba":
+        return {"conv": TensorSpec((n, batch, cfg.d_conv - 1, cfg.d_inner),
+                                   dtype),
+                "ssm": TensorSpec((n, batch, cfg.d_inner, cfg.d_state),
+                                  torch.float32)}
+    shp = (n, batch, cfg.n_kv_heads, kv_capacity(cfg, seq_len), cfg.head_dim)
     return {"k": TensorSpec(shp, dtype), "v": TensorSpec(shp, dtype)}
 
 
+def cache_spec(cfg, batch: int, seq_len: int,
+               dtype: torch.dtype = torch.bfloat16):
+    """Shapes and dtypes of the stacked decode cache: one stacked dict
+    over the layers (``layer_cache_spec``), or for a hybrid arch a tuple
+    of one per position of the period, each stacked over the periods."""
+    check_family(cfg)
+    if cfg.family == "hybrid":
+        n_periods = cfg.n_layers // period(cfg)
+        return tuple(layer_cache_spec(cfg, pos, n_periods, batch, seq_len,
+                                      dtype) for pos in range(period(cfg)))
+    return layer_cache_spec(cfg, 0, cfg.n_layers, batch, seq_len, dtype)
+
+
 def init_cache(cfg, batch: int, seq_len: int, device: torch.device,
-               dtype: torch.dtype = torch.bfloat16) -> Dict[str, torch.Tensor]:
-    return {n: torch.zeros(s.shape, dtype=s.dtype, device=device)
-            for n, s in cache_spec(cfg, batch, seq_len, dtype).items()}
+               dtype: torch.dtype = torch.bfloat16):
+    return map_leaves(lambda s: torch.zeros(s.shape, dtype=s.dtype,
+                                            device=device),
+                      cache_spec(cfg, batch, seq_len, dtype))
 
 
 def make_positions(cfg, b: int, s: int, device: torch.device) -> torch.Tensor:
@@ -118,20 +175,29 @@ def make_positions(cfg, b: int, s: int, device: torch.device) -> torch.Tensor:
 # Layers
 # ---------------------------------------------------------------------------
 
-def apply_layer(p: Dict, x: torch.Tensor, cfg, positions, mode: str,
-                cache: Optional[Dict], cur_len, chunk: int,
+def apply_layer(p: Dict, x: torch.Tensor, cfg, layer_idx: int, positions,
+                mode: str, cache: Optional[Dict], cur_len, chunk: int,
                 seq_capacity: int
                 ) -> Tuple[torch.Tensor, Optional[Dict],
                            Optional[torch.Tensor]]:
     """Returns (x, new_cache_entry, aux_loss); the cache entry is None in
     train mode, and aux is None for a dense FFN or an RWKV layer, which
-    add nothing (and launch nothing) to the sum."""
-    if cfg.family == "ssm":
+    add nothing (and launch nothing) to the sum.  ``layer_idx`` is the
+    layer's position in its period (0 for a period-1 arch)."""
+    kind = layer_kind(cfg, layer_idx)
+    if kind == "rwkv":
         return _apply_rwkv_layer(p, x, cfg, mode, cache)
     rs = cfg.residual_scale
     h = ll.apply_norm(p["norm1"], x, cfg)
     new_cache = None
-    if mode == "decode":
+    if kind == "mamba":
+        st = cache or {}
+        mix, conv, ssm = mm.apply_mamba(
+            p["mixer"], h, cfg, conv_state=st.get("conv"),
+            ssm_state=st.get("ssm"), remat=(mode == "train"))
+        if mode != "train":
+            new_cache = _update(cache, {"conv": conv, "ssm": ssm}, mode)
+    elif mode == "decode":
         mix, new_cache = ll.attention_decode(p["mixer"], h, cfg, cache,
                                              cur_len)
     elif mode == "prefill":
@@ -145,7 +211,7 @@ def apply_layer(p: Dict, x: torch.Tensor, cfg, positions, mode: str,
     x = x + rs * mix
     h2 = ll.apply_norm(p["norm2"], x, cfg)
     aux = None
-    if cfg.is_moe_layer(0):
+    if cfg.is_moe_layer(layer_idx):
         f, aux = me.apply_moe(p["ffn"], h2, cfg, mode=mode)
     else:
         f = ll.apply_mlp(p["ffn"], h2, cfg)
@@ -153,12 +219,22 @@ def apply_layer(p: Dict, x: torch.Tensor, cfg, positions, mode: str,
     return x, new_cache, aux
 
 
+def _update(cache: Optional[Dict], new: Dict, mode: str) -> Dict:
+    """A recurrent layer's new states: returned as they are in prefill;
+    in decode written into ``cache`` (this layer's views of the stacked
+    cache) in place, each cast to the cache leaf's dtype as JAX's update
+    does, and ``cache`` returned."""
+    if mode != "decode":
+        return new
+    for n, c in cache.items():
+        c.copy_(new[n])
+    return cache
+
+
 def _apply_rwkv_layer(p: Dict, x: torch.Tensor, cfg, mode: str,
                       cache: Optional[Dict]
                       ) -> Tuple[torch.Tensor, Optional[Dict], None]:
-    """An RWKV layer.  Prefill returns the new states; decode writes them
-    into ``cache`` (this layer's views of the stacked cache) in place,
-    each cast to the cache leaf's dtype as JAX's update does.  The time
+    """An RWKV layer; its states as ``_update`` keeps them.  The time
     mix runs at its own chunk (32), not the decoder's, as in JAX."""
     rs = cfg.residual_scale
     st = cache or {}
@@ -173,12 +249,8 @@ def _apply_rwkv_layer(p: Dict, x: torch.Tensor, cfg, mode: str,
     x = x + rs * f
     if mode == "train":
         return x, None, None
-    new = {"shift_tm": shift_tm, "shift_cm": shift_cm, "wkv": wkv}
-    if mode == "decode":
-        for n, c in cache.items():
-            c.copy_(new[n])
-        return x, cache, None
-    return x, new, None
+    return x, _update(cache, {"shift_tm": shift_tm, "shift_cm": shift_cm,
+                              "wkv": wkv}, mode), None
 
 
 def _unstack(tree: Dict, n: int) -> List[Dict]:
@@ -192,36 +264,49 @@ def _unstack(tree: Dict, n: int) -> List[Dict]:
     return [{k: v[i] for k, v in split.items()} for i in range(n)]
 
 
-def decoder_forward(layers_params: Dict, x: torch.Tensor, cfg, positions,
-                    mode: str, cache: Optional[Dict] = None, cur_len=None,
-                    chunk: int = 2048, seq_capacity: int = 0
-                    ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
+def decoder_forward(layers_params, x: torch.Tensor, cfg, positions,
+                    mode: str, cache=None, cur_len=None, chunk: int = 2048,
+                    seq_capacity: int = 0
+                    ) -> Tuple[torch.Tensor, Any, torch.Tensor]:
     """Run the decoder stack -> (x, cache, aux_loss summed over layers).
     Train returns no cache; prefill returns a new stacked cache in the
-    compute dtype (RWKV's WKV state in f32); decode writes into ``cache``
-    in place and returns it."""
+    compute dtype (the RWKV and ssm states in f32); decode writes into
+    ``cache`` in place and returns it.  A hybrid arch's params and cache
+    are tuples over the positions of its period; the loop runs period by
+    period, position by position, as the JAX scan over periods does."""
     seq_capacity = seq_capacity or x.shape[1]
-    new = []
+    hybrid = cfg.family == "hybrid"
+    n_pos = period(cfg)
+    n_steps = cfg.n_layers // n_pos
+    stacks = layers_params if hybrid else (layers_params,)
+    per_layer = [_unstack(t, n_steps) for t in stacks]
+    if mode == "decode":
+        caches = [_unstack(c, n_steps) for c in (cache if hybrid
+                                                 else (cache,))]
+    else:
+        caches = [[None] * n_steps] * n_pos
+    new: List[List[Optional[Dict]]] = [[] for _ in range(n_pos)]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    per_layer = _unstack(layers_params, cfg.n_layers)
-    caches = (_unstack(cache, cfg.n_layers) if mode == "decode"
-              else [None] * cfg.n_layers)
-    for lp, lc in zip(per_layer, caches):
-        if mode == "train":
-            x, nc, a = checkpoint(apply_layer, lp, x, cfg, positions, mode,
-                                  None, None, chunk, seq_capacity,
-                                  use_reentrant=False)
-        else:
-            x, nc, a = apply_layer(lp, x, cfg, positions, mode, lc, cur_len,
-                                   chunk, seq_capacity)
-        if a is not None:
-            aux = aux + a
-        new.append(nc)
+    for i in range(n_steps):
+        for pos in range(n_pos):
+            lp, lc = per_layer[pos][i], caches[pos][i]
+            if mode == "train":
+                x, nc, a = checkpoint(apply_layer, lp, x, cfg, pos,
+                                      positions, mode, None, None, chunk,
+                                      seq_capacity, use_reentrant=False)
+            else:
+                x, nc, a = apply_layer(lp, x, cfg, pos, positions, mode, lc,
+                                       cur_len, chunk, seq_capacity)
+            if a is not None:
+                aux = aux + a
+            new[pos].append(nc)
     if mode == "train":
         return x, None, aux
     if mode == "decode":
         return x, cache, aux
-    return x, {n: torch.stack([c[n] for c in new]) for n in new[0]}, aux
+    stacked = tuple({n: torch.stack([c[n] for c in cs]) for n in cs[0]}
+                    for cs in new)
+    return x, stacked if hybrid else stacked[0], aux
 
 
 # ---------------------------------------------------------------------------
@@ -229,10 +314,10 @@ def decoder_forward(layers_params: Dict, x: torch.Tensor, cfg, positions,
 # ---------------------------------------------------------------------------
 
 def lm_apply(params: Dict, batch: Dict, cfg, mode: str = "prefill",
-             cache: Optional[Dict] = None, cur_len=None, chunk: int = 2048,
+             cache=None, cur_len=None, chunk: int = 2048,
              seq_capacity: int = 0,
              compute_dtype: torch.dtype = torch.bfloat16
-             ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
+             ) -> Tuple[torch.Tensor, Any, torch.Tensor]:
     """Unified LM entry.  Returns (logits, new_cache, aux_loss):
 
       train  : logits (b, s, Vp), no cache

@@ -20,7 +20,7 @@ from typing import Any, Tuple
 import torch
 
 from repro_torch.kernels.quantize.ops import quantize
-from repro_torch.models.common import map_leaves
+from repro_torch.models.common import leaves, map_leaves, unflatten
 
 
 def int8_block_quantize(x: torch.Tensor, block: int = 256
@@ -47,9 +47,9 @@ def compress_gradients(grads: Any, error: Any, block: int = 256
         deq = int8_block_dequantize(q, s, pad, g.shape)
         return deq.to(g.dtype), corrected - deq
 
-    outs = map_leaves(one, grads, error)           # (deq, err) pairs
-    return (map_leaves(lambda o: o[0], outs),
-            map_leaves(lambda o: o[1], outs))
+    pairs = [one(g, e) for g, e in zip(leaves(grads), leaves(error))]
+    return (unflatten(grads, [d for d, _ in pairs]),
+            unflatten(grads, [e for _, e in pairs]))
 
 
 def init_error_buffer(params: Any) -> Any:

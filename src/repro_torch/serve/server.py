@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.api import Model
+from repro_torch.models.common import map_leaves
 from repro_torch.serve.policy import SlotScheduler
 from repro_torch.serve.step import build_decode_step, build_prefill_step
 
@@ -86,8 +87,9 @@ class BatchServer:
             tokens = torch.as_tensor(np.asarray(req.prompt)[None],
                                      dtype=torch.int64, device=dev)
             logits, rcache = self._prefill(self.params, {"tokens": tokens})
-            for n, c in cache.items():   # in place, in the leaf's dtype
-                c[:, slot].copy_(rcache[n][:, 0])
+            # every leaf (a hybrid arch's cache is a tuple of per-position
+            # dicts) in place, in the leaf's dtype: recurrent states stay f32
+            map_leaves(lambda c, r: c[:, slot].copy_(r[:, 0]), cache, rcache)
             tok = int(torch.argmax(logits[0, -1].float()))
             self.prefill_seconds.append(time.perf_counter() - t0)
             req.output.append(tok)

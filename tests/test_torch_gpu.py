@@ -78,6 +78,23 @@ def test_flash_attention_kernel(card, b, s, h, kvh, d, window, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [1, 127, 129, 255, 1000, 1762, 2047])
+def test_flash_attention_kernel_jamba_heads(card, s, dtype):
+    """jamba-v0.1-52b's attention layer: GQA 32/8 at d=128, causal, no
+    window, at ragged prompt lengths on both sides of the 128-row tiles
+    and up to the serve run's longest."""
+    gen = torch.Generator(device=card).manual_seed(s)
+    q = torch.randn(1, s, 32, 128, generator=gen, device=card).to(dtype)
+    k, v = (torch.randn(1, s, 8, 128, generator=gen, device=card).to(dtype)
+            for _ in range(2))
+    got = ops.flash_attention(q, k, v)
+    want = ops.flash_attention_plain(q, k, v)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_not_causal(card, dtype):
     """causal=False, and fewer keys than queries (index-based masks)."""
     gen = torch.Generator(device=card).manual_seed(1)
@@ -424,6 +441,48 @@ def test_train_step_on_the_card(card):
         cpu, mc = step(cpu, batch_to(b, "cpu"))
         for k in ("loss", "grad_norm", "lr"):
             assert abs(float(mg[k]) - float(mc[k])) <= 2e-2 * abs(float(mc[k]))
+
+
+@pytest.mark.gpu
+def test_smoke_jamba_serves_through_the_kernels(card, monkeypatch):
+    """smoke(jamba-v0.1-52b) in bf16 on the card: a prefill launches the
+    flash kernel once (the attention position) and moe_mlp four times
+    (the odd positions), each decode step moe_mlp four times and flash
+    never; the prefill and two decode steps agree with the same model
+    with both wrappers replaced by their plain versions, within 2e-2 of
+    the largest logit (the two sum in other orders, which flips bf16
+    roundings by an ulp)."""
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.models import build_model, layers, moe
+    model = build_model(smoke(get_config("jamba-v0.1-52b")))
+    params = model.load(model.init(0, "cpu"), card)
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, 256, (2, 42), generator=gen).to(card)
+
+    def run():
+        n0 = (ops.flash_attention.launches, moe_ops.expert_mlp.launches)
+        logits, cache = model.prefill(params, {"tokens": toks[:, :40]},
+                                      seq_capacity=64)
+        out = [logits]
+        for i in range(2):
+            step, cache = model.decode(params, {"tokens": toks[:, 40 + i:
+                                                                41 + i]},
+                                       cache, 40 + i)
+            out.append(step)
+        torch.cuda.synchronize()
+        return out, (ops.flash_attention.launches - n0[0],
+                     moe_ops.expert_mlp.launches - n0[1])
+
+    got, launched = run()
+    assert launched == (1, 4 * 3)
+    monkeypatch.setattr(layers, "flash_attention", ops.flash_attention_plain)
+    monkeypatch.setattr(moe, "expert_mlp", moe_ops.expert_mlp_plain)
+    want, launched = run()
+    assert launched == (0, 0)
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        scale = float(w.float().abs().max())
+        assert float((g.float() - w.float()).abs().max()) <= 2e-2 * scale
 
 
 @pytest.mark.gpu

@@ -143,17 +143,26 @@ def test_moe_archs_resolve_in_the_port():
         assert cfg.family == "moe" and cfg.act == "swiglu"
 
 
+def test_launcher_serves_jamba_on_cpu(capsys):
+    from repro_torch.launch import serve as launch_serve
+    launch_serve.main(["--arch", "jamba-v0.1-52b", "--requests", "3",
+                       "--max-new", "2", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "req 2:" in out and "server.requests 3" in out
+
+
 def test_unported_archs_and_families_name_their_roadmap_item():
     from dataclasses import replace
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("jamba-v0.1-52b")
+        get_config("qwen2-vl-7b")
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("no-such-arch")
-    hybrid = replace(get_config("stablelm-1.6b"), family="hybrid")
+    vlm = replace(get_config("stablelm-1.6b"), family="vlm")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(hybrid)
+        build_model(vlm)
+    assert get_config("jamba-v0.1-52b").family == "hybrid"
 
 
 def test_config_copies_match_the_jax_package():
