@@ -5,7 +5,7 @@
     python3 chip_smoke.py --kernel-times [--src DIR]
     python3 chip_smoke.py --path-times [--src DIR]
 
-Five paths, each at full width with random weights from --seed, in bf16:
+Six paths, each at full width with random weights from --seed, in bf16:
 stablelm-1.6b served (dense; prefill attention in the flash-attention
 kernel), olmoe-1b-7b served (MoE; the same attention kernel, and the
 expert FFN in the moe_mlp kernel), stablelm-1.6b trained (AdamW with int8
@@ -13,7 +13,10 @@ gradient compression, whose quantization is the quantize kernel),
 rwkv6-7b served (RWKV-6; the time mix's recurrence in the wkv6 kernel),
 and jamba-v0.1-52b served at one period of its 8-layer pattern (Mamba,
 attention and MoE; the attention layer's prefill in the flash kernel,
-every MoE FFN in moe_mlp, the Mamba scan in plain PyTorch as in JAX).
+every MoE FFN in moe_mlp, the Mamba scan in plain PyTorch as in JAX), and
+qwen2-vl-7b served (the VLM backbone: M-RoPE, a 256-token vision prefix
+in front of every prompt; prefill attention in the flash kernel at GQA
+28/4, its mask the vision prefix's, see phase 3).
 Phases, each of which raises on failure (the script then exits non-zero):
 
 1. card     -- the card's name and power limit (nvidia-smi), torch and CUDA
@@ -23,8 +26,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
 3. sweep    -- each kernel against its plain PyTorch version on the card:
                flash over the sweep of tests/test_kernels.py x {f32, bf16}
                plus ragged lengths on both sides of the 128-row tiles,
-               GQA, d=16 and 32, windows that end inside a tile and
-               olmoe's heads; moe_mlp over its sweep of
+               GQA, d=16 and 32, windows that end inside a tile,
+               olmoe's heads, and qwen2-vl-7b's GQA 28/4 at d=128 with and
+               without a vision prefix (keys below the prefix visible to
+               every row); moe_mlp over its sweep of
                tests/test_kernels.py and olmoe's widths at the ragged
                capacities its prefill and decode give, decode steps of
                4 and 8 slots and of C > 1 folded into one row tile, then at
@@ -90,7 +95,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
                (16 flash and 16 moe_mlp), rwkv6-7b (32 wkv6) and
                deepseek-67b (95 flash; its 134 GB of bf16 params never
                exist), jamba-v0.1-52b at all 32 layers (4 flash and 16
-               moe_mlp; 104 GB of bf16 params never exist), and the
+               moe_mlp; 104 GB of bf16 params never exist), qwen2-vl-7b
+               (28 flash; 1792 tokens and the 256-token vision prefix,
+               flops within 1% of the analytic count), each with every
+               op costed by a rule, and the
                train cell's step (15 quantize ops, no forward-only
                kernel): no launch, no device memory, each total beside
                the analytic 2 N tokens plus attention (and the Mamba
@@ -108,6 +116,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
                d=128) against SDPA and moe_mlp at its decode shape (G=4,
                C=1); the plain Mamba scan's peak memory and time at 2048
                tokens; then phase 7 for it, with the scan's device time
+18. qwen2-vl -- jamba freed; qwen2-vl-7b at full width and depth (28
+               layers, 7.6 B params), drawn in f32 and cast to bf16 leaf
+               by leaf (the init's peak printed); phase 4 on 256 vision
+               and 1792 text tokens (the plain flash in the kernel's
+               place); phase 5 with a vision prefix drawn from the seed
+               on every request (exactly 224 flash launches, none in a
+               decode step); flash at GQA 28/4 d=128 against SDPA
+               (enable_gqa), and alone with the 256-key prefix; phase 7
+               for it
 
 Every kernel's bound is its ``cost`` (flops, bytes) in its ``ops.py``, the
 definition the dry run's kernel ops are costed by.  It prints the fidelity
@@ -117,11 +134,12 @@ Without a CUDA device, or without the repo's ``src/repro_torch`` beside it,
 it exits non-zero and prints no result.
 
 ``--kernel-times`` runs only phases 1 and 2 for the flash_attention,
-moe_mlp and wkv6 kernels and their timings (phase 6's at stablelm's and
-olmoe's attention shapes; phase 8's at olmoe's prefill and decode, and at
-jamba's and mixtral's prefill, and the waves; wkv6 at rwkv6-7b's prefill
-shape and at each prompt length of the serve run, each checked once
-against its plain version, with its bound and share of the bound), then
+moe_mlp and wkv6 kernels and their timings (phase 6's at stablelm's,
+olmoe's and qwen2-vl's attention shapes; phase 8's at olmoe's prefill
+and decode, and at jamba's and mixtral's prefill, and the waves; wkv6 at
+rwkv6-7b's prefill shape and at each prompt length of the serve run,
+each checked once against its plain version, with its bound and share
+of the bound), then
 prints the times as one JSON line and the card's line, with no result
 line (the tree must hold each kernel's ``cost``).  ``--path-times`` runs
 only phases 1 and 2 for flash_attention and moe_mlp and times stablelm-1.6b's
@@ -233,6 +251,14 @@ JAMBA_MOE_DECODE = MOE_LARGE_F[1]              # G=4 C=1, E=16, F=14336
 # longer prefill runs the chunked scan.  5% of the largest logit is many
 # such ulps; a wrong state, mask or expert moves logits by their scale.
 JAMBA_LOGIT_RTOL = 0.05
+# qwen2-vl-7b: all 28 layers at full width (7.615 B params, 15.2 GB in
+# bf16, 30.5 GB in f32 at init); every request and the model phase's
+# prefill carry the 256-token vision prefix of the stub frontend
+VLM_ARCH = "qwen2-vl-7b"
+VLM_ATTN_SHAPE = dict(b=1, s=2048, h=28, kvh=4, d=128)
+# the model phase: as stablelm's, the two paths differ only in the order
+# of f32 sums inside attention; 28 layers spread the one-ulp flips
+VLM_LOGIT_RTOL = 0.05
 
 
 def check(cond: bool, msg: str) -> None:
@@ -303,7 +329,9 @@ def kernel_times(torch, np, card: str, src: Path, seed: int) -> None:
     phase_build(build, (kernel, moe_kernel, w_kernel))
     times = {f"{ARCH} attention": phase_timing(torch, ops, MAIN_SHAPE),
              f"{MOE_ARCH} attention": phase_timing(torch, ops,
-                                                   MOE_ATTN_SHAPE)}
+                                                   MOE_ATTN_SHAPE),
+             f"{VLM_ARCH} attention": phase_timing(torch, ops,
+                                                   VLM_ATTN_SHAPE)}
     shapes = {f"{MOE_ARCH} prefill": MOE_PREFILL,
               f"{MOE_ARCH} decode": MOE_DECODE,
               **{f"{a} prefill": sh for a, sh in MOE_LARGE_F_PREFILL.items()}}
@@ -418,15 +446,27 @@ def phase_sweep(torch, ops) -> None:
              # 2048; GQA 32/8 at d=128 across a tile edge; d=16 and 32
              (1, 1953, 16, 16, 128, 0), (1, 2048, 16, 16, 128, 0),
              (1, 257, 32, 8, 128, 0), (1, 257, 4, 2, 16, 0),
-             (2, 129, 4, 4, 32, 0)]
+             (2, 129, 4, 4, 32, 0),
+             # qwen2-vl-7b's GQA 28/4 (seven query heads a kv head) at
+             # d=128: 2048, its shortest served merged length 415 = 256 +
+             # 159, across a tile edge and one token; then with its
+             # 256-token vision prefix (keys below it visible to every
+             # row: the M-RoPE mask), a prefix past s, and smaller ones
+             # that end inside and at a tile edge
+             (1, 2048, 28, 4, 128, 0), (1, 415, 28, 4, 128, 0),
+             (1, 129, 28, 4, 128, 0), (1, 1, 28, 4, 128, 0),
+             (1, 2048, 28, 4, 128, 0, 256), (1, 415, 28, 4, 128, 0, 256),
+             (1, 129, 28, 4, 128, 0, 256), (1, 300, 4, 2, 64, 0, 100),
+             (2, 255, 4, 1, 32, 0, 128)]
     gen = torch.Generator(device="cuda").manual_seed(1)
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
-        for b, s, h, kvh, d, win in sweep:
+        for b, s, h, kvh, d, win, *prefix in sweep:
             q = torch.randn(b, s, h, d, generator=gen, device="cuda").to(dtype)
             k = torch.randn(b, s, kvh, d, generator=gen, device="cuda").to(dtype)
             v = torch.randn(b, s, kvh, d, generator=gen, device="cuda").to(dtype)
-            kw = dict(causal=win is not None, window=win or 0)
+            kw = dict(causal=win is not None, window=win or 0,
+                      prefix=prefix[0] if prefix else 0)
             got = ops.flash_attention(q, k, v, **kw)
             want = ops.flash_attention_plain(q, k, v, **kw)
             torch.cuda.synchronize()
@@ -434,30 +474,55 @@ def phase_sweep(torch, ops) -> None:
             lim = TOL[name] * (1 + want.float().abs())
             ok = bool((err <= lim).all()) and bool(torch.isfinite(got).all())
             case = (f"{name} b={b} s={s} h={h} kvh={kvh} d={d} "
-                    f"causal={kw['causal']} window={kw['window']}")
+                    f"causal={kw['causal']} window={kw['window']} "
+                    f"prefix={kw['prefix']}")
             print(f"sweep {case}: max_abs_err={float(err.max()):.3e} "
                   f"tol={TOL[name]} {'ok' if ok else 'FAIL'}")
             check(ok, f"kernel disagrees with its plain version ({case})")
 
 
+def vision_extras(cfg, rng) -> dict:
+    """A VLM request's stub frontend output, (n_vis, d_model) patch
+    embeddings drawn from ``rng`` as the launchers draw them; nothing,
+    and no draw, for other families."""
+    import numpy as np
+    if cfg.family != "vlm":
+        return {}
+    return {"vision_embeds": (rng.standard_normal((cfg.n_vis, cfg.d_model))
+                              * 0.1).astype(np.float32)}
+
+
+def on_card(torch, extras: dict) -> dict:
+    """A request's extras as a batch-1 prefill's inputs on the card."""
+    return {k: torch.as_tensor(v, device="cuda")[None]
+            for k, v in extras.items()}
+
+
+def n_vis_of(cfg) -> int:
+    return cfg.n_vis if cfg.family == "vlm" else 0
+
+
 def phase_model(torch, np, cfg, model, params, seed: int, swaps,
                 rtol: float) -> None:
-    """A 2048-token prefill through the kernel path, then through the same
-    model with each kernel's wrapper ``module.<name>`` of ``swaps``
-    (``(module, name, plain)``) replaced by its plain version, here only;
-    the last position's logits compared."""
+    """A 2048-token prefill through the kernel path (a VLM's: its vision
+    prefix and 2048 - n_vis text tokens), then through the same model
+    with each kernel's wrapper ``module.<name>`` of ``swaps`` (``(module,
+    name, plain)``) replaced by its plain version, here only; the last
+    position's logits compared."""
     from repro_torch.models.layers import padded_vocab
-    prompt = np.random.default_rng(seed).integers(0, cfg.vocab_size, 2048)
-    tokens = torch.as_tensor(prompt, device="cuda")[None]
+    rng = np.random.default_rng(seed)
+    prompt = rng.integers(0, cfg.vocab_size, 2048 - n_vis_of(cfg))
+    batch = {"tokens": torch.as_tensor(prompt, device="cuda")[None],
+             **on_card(torch, vision_extras(cfg, rng))}
     t0 = time.perf_counter()
-    logits_k, _ = model.prefill(params, {"tokens": tokens})
+    logits_k, _ = model.prefill(params, batch)
     torch.cuda.synchronize()
     t_k = time.perf_counter() - t0
     kernel_fns = [getattr(module, name) for module, name, _ in swaps]
     for module, name, plain in swaps:
         setattr(module, name, plain)
     try:
-        logits_p, _ = model.prefill(params, {"tokens": tokens})
+        logits_p, _ = model.prefill(params, batch)
         torch.cuda.synchronize()
     finally:
         for (module, name, _), fn in zip(swaps, kernel_fns):
@@ -501,12 +566,17 @@ def phase_serve(torch, np, cfg, model, params, counters, seed: int,
     run and read just after.  Each prefill launches the flash kernel once
     per attention layer and wkv6 once per RWKV layer; moe_mlp runs once
     per MoE layer of every prefill and every decode step; no other kernel
-    runs in a decode step."""
+    runs in a decode step.  A VLM's requests carry their vision prefix
+    (``extras``), and each merged prompt with its new tokens fits the
+    capacity: no KV ring wraps."""
     from repro_torch.serve import BatchServer, Request
     rng = np.random.default_rng(seed)
     lens = serve_lengths(rng)
     reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, int(n)),
-                    max_new_tokens=SERVE_NEW) for i, n in enumerate(lens)]
+                    max_new_tokens=SERVE_NEW, extras=vision_extras(cfg, rng))
+            for i, n in enumerate(lens)]
+    check(max(lens) + n_vis_of(cfg) + SERVE_NEW <= SERVE_CAP,
+          "a merged prompt and its new tokens exceed the capacity")
     srv = BatchServer(model, params, slots=SERVE_SLOTS,
                       seq_capacity=SERVE_CAP, device="cuda")
     in_decode = {n: 0 for n in counters}
@@ -549,16 +619,18 @@ def phase_serve(torch, np, cfg, model, params, counters, seed: int,
     # the server's first token is a batch-1 prefill: reproduce one
     r0 = min(done, key=lambda r: r.rid)
     lg, _ = model.prefill(srv.params, {
-        "tokens": torch.as_tensor(r0.prompt, device="cuda")[None]},
-        seq_capacity=SERVE_CAP)
+        "tokens": torch.as_tensor(r0.prompt, device="cuda")[None],
+        **on_card(torch, r0.extras)}, seq_capacity=SERVE_CAP)
     check(int(lg[0, -1].float().argmax()) == r0.output[0],
           "first token differs from a standalone prefill")
     pre = np.array(srv.prefill_seconds) * 1e3
     dec = np.array(srv.decode_seconds) * 1e3
     tokens = sum(len(r.output) for r in done)
+    vis = f" + {n_vis_of(cfg)} vision tokens each" if n_vis_of(cfg) else ""
     print(f"serve {cfg.name} slots={SERVE_SLOTS} cap={SERVE_CAP} prompts "
-          f"{sorted(int(n) for n in lens)}: {tokens} tokens in {wall:.3f} s "
-          f"= {tokens / wall:.1f} tokens/s; prefill {pre.mean():.2f} ms/request "
+          f"{sorted(int(n) for n in lens)}{vis}: {tokens} tokens in "
+          f"{wall:.3f} s = {tokens / wall:.1f} tokens/s; prefill "
+          f"{pre.mean():.2f} ms/request "
           f"(min {pre.min():.2f}, max {pre.max():.2f}); decode "
           f"{dec.mean():.2f} ms/step over {srv.decode_steps} steps "
           f"(median {np.median(dec):.2f}); launches {launches}, of which "
@@ -678,7 +750,9 @@ def phase_profile(torch, np, cfg, model, params, seed: int, card: str,
     rng = np.random.default_rng(seed + 1)
     lens = rng.integers(128, 2049, PROFILE_REQUESTS)
     reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, int(n)),
-                    max_new_tokens=PROFILE_NEW) for i, n in enumerate(lens)]
+                    max_new_tokens=PROFILE_NEW,
+                    extras=vision_extras(cfg, rng))
+            for i, n in enumerate(lens)]
     srv = BatchServer(model, params, slots=SERVE_SLOTS,
                       seq_capacity=SERVE_CAP, device="cuda")
 
@@ -1566,23 +1640,31 @@ def _matmul_params(cfg, tree) -> float:
 def phase_fidelity_dryruns(torch, counters, seed: int, card: str) -> dict:
     """DryRunBackend on fake CUDA tensors at full width, params included
     (their specs from an init on fake tensors): stablelm-1.6b's,
-    olmoe-1b-7b's, rwkv6-7b's, deepseek-67b's and jamba-v0.1-52b's (all
-    32 layers) prefill at b=1 s=2048 and the train cell's step
-    (stablelm-1.6b, 4 x 2048, grad_compress).
+    olmoe-1b-7b's, rwkv6-7b's, deepseek-67b's, jamba-v0.1-52b's (all
+    32 layers) and qwen2-vl-7b's (2048 - n_vis tokens and the vision
+    prefix, as JAX's input specs give a VLM prefill) prefill at b=1
+    s=2048 and the train cell's step (stablelm-1.6b, 4 x 2048,
+    grad_compress).
     Each leaves every launch count and the card's allocated memory as
     they were, and reaches each kernel's custom op exactly once per layer
     that runs it (the train step: once per parameter leaf, quantize
-    only)."""
+    only); every prefill's ops all have a cost rule, and qwen2-vl-7b's
+    flops lie within 1% of the analytic count."""
     from repro_torch.configs import get_config
     from repro_torch.core.fidelity import (DryRunBackend, StepProgram,
                                            TensorSpec, eval_shape, specs_of)
     from repro_torch.models import build_model
     from repro_torch.serve.step import build_prefill_step
     from repro_torch.train import batch_to, build_train_step, init_train_state
-    tokens = {"tokens": TensorSpec((FIDELITY_B, FIDELITY_S), torch.int64)}
     runs = []
-    for arch in (ARCH, MOE_ARCH, RWKV_ARCH, DENSE_67B, JAMBA_ARCH):
+    for arch in (ARCH, MOE_ARCH, RWKV_ARCH, DENSE_67B, JAMBA_ARCH, VLM_ARCH):
         cfg = get_config(arch)
+        n_vis = n_vis_of(cfg)
+        tokens = {"tokens": TensorSpec((FIDELITY_B, FIDELITY_S - n_vis),
+                                       torch.int64)}
+        if n_vis:
+            tokens["vision_embeds"] = TensorSpec(
+                (FIDELITY_B, n_vis, cfg.d_model), torch.bfloat16)
         model = build_model(cfg)
         specs = eval_shape(lambda: model.load(model.init(seed, "cpu"), "cpu"))
         kinds, n_moe = layer_plan(cfg)
@@ -1619,6 +1701,13 @@ def phase_fidelity_dryruns(torch, counters, seed: int, card: str) -> dict:
               f"dry run {label}: kernel ops {rep.detail['kernels']}, want "
               f"{want}")
         analytic = analytic_flops(cfg, _param_specs(prog), b, s, train)
+        if not train:
+            check(not rep.detail["unknown_ops"],
+                  f"dry run {label}: ops with no cost rule "
+                  f"{rep.detail['unknown_ops']}")
+        if cfg.family == "vlm":
+            check(abs(rep.flops / analytic - 1) <= 0.01,
+                  f"dry run {label}: {rep.flops} flops, analytic {analytic}")
         k_flops = sum(f for n, f, _ in rep.detail["ops"]
                       if n.startswith("repro_torch."))
         k_bytes = sum(nb for n, _, nb in rep.detail["ops"]
@@ -1842,6 +1931,12 @@ def main() -> int:
     jcfg, jamba_launches, t_jamba, td_jamba, scan = phase_jamba(
         torch, np, counters, args.seed, card)
 
+    # 18. qwen2-vl-7b served at full width, everything before freed
+    gc.collect()
+    torch.cuda.empty_cache()
+    vlm_launches, t_vlm = phase_qwen2_vl(torch, np, counters, args.seed,
+                                         card)
+
     by_path = {ARCH: dense_launches, MOE_ARCH: moe_launches,
                f"{ARCH} train": train_launches,
                f"{MOE_ARCH} train ({MOE_TRAIN_LAYERS} layers)":
@@ -1849,7 +1944,8 @@ def main() -> int:
                RWKV_ARCH: rwkv_launches,
                f"{RWKV_ARCH} train ({RWKV_TRAIN_LAYERS} layers)":
                    rwkv_train_launches,
-               f"{JAMBA_ARCH} ({jcfg.n_layers} layers)": jamba_launches}
+               f"{JAMBA_ARCH} ({jcfg.n_layers} layers)": jamba_launches,
+               VLM_ARCH: vlm_launches}
     rows = [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -1866,7 +1962,11 @@ def main() -> int:
          "jamba": {**t_jamba,
                    "shape": "b={b} s={s} h={h} kvh={kvh} d={d} bf16 "
                             "(jamba-v0.1-52b prefill)"
-                            .format(**JAMBA_ATTN_SHAPE)}},
+                            .format(**JAMBA_ATTN_SHAPE)},
+         "qwen2_vl": {**t_vlm,
+                      "shape": "b={b} s={s} h={h} kvh={kvh} d={d} bf16 "
+                               "(qwen2-vl-7b prefill)"
+                               .format(**VLM_ATTN_SHAPE)}},
         {"name": "moe_mlp", "route": "cuda",
          "source": "src/repro_torch/kernels/moe_mlp/csrc/moe_mlp.cu",
          "replaces": "src/repro/kernels/moe_mlp/kernel.py:31",
@@ -1945,6 +2045,99 @@ def phase_jamba(torch, np, counters, seed: int, card: str):
     phase_profile(torch, np, cfg, model, params, seed, card,
                   scopes=[("mamba_scan", mamba, "selective_scan_chunked")])
     return cfg, launches, t_flash, t_decode, scan
+
+
+def phase_qwen2_vl(torch, np, counters, seed: int, card: str):
+    """Phase 18: qwen2-vl-7b at full width, all 28 layers, drawn in f32
+    and cast to bf16 leaf by leaf; phase 4 (the plain flash in the
+    kernel's place) on 256 vision and 1792 text tokens, phase 5 (exactly
+    28 flash launches a request, none in a decode step), flash at its
+    attention shape (GQA 28/4, d=128) against SDPA, and phase 7.  Returns
+    (launches of the serve run, flash times)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import build_model, layers
+    cfg = get_config(VLM_ARCH)
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(seed, "cuda")
+    torch.cuda.synchronize()
+    f32_peak = torch.cuda.max_memory_allocated()
+    _cast_leaf_by_leaf(torch, params, torch.bfloat16)
+    params = model.load(params, "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"model: {VLM_ARCH} drawn in f32 and cast to bf16 leaf by leaf in "
+          f"{time.perf_counter() - t0:.1f} s, {n_params / 1e9:.3f} B params "
+          f"(ArchConfig.param_counts: "
+          f"{cfg.param_counts()['total'] / 1e9:.3f} B), peak device memory "
+          f"of the f32 draw {f32_peak / 2**30:.2f} GiB, of the init "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, bf16 params "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB [{card}]")
+    phase_model(torch, np, cfg, model, params, seed,
+                [(layers, "flash_attention", ops.flash_attention_plain)],
+                VLM_LOGIT_RTOL)
+    launches, _ = phase_serve(torch, np, cfg, model, params, counters, seed,
+                              card)
+    t_flash = phase_timing(torch, ops, VLM_ATTN_SHAPE)
+    t_flash["prefix"] = phase_prefix_timing(torch, ops, cfg.n_vis, card)
+    phase_profile(torch, np, cfg, model, params, seed, card)
+    return launches, t_flash
+
+
+def phase_prefix_timing(torch, ops, prefix: int, card: str) -> dict:
+    """The kernel as the VLM prefill runs it, with the vision prefix, at
+    VLM_ATTN_SHAPE, held against its plain version; its ms, the plain
+    version's, the bound of its ``cost`` (the prefix adds prefix^2 / 2
+    visible pairs) and scaled_dot_product_attention with the same mask
+    as an explicit boolean ``attn_mask`` and ``enable_gqa``.  Also times
+    the design the kernel's ``prefix`` spares: a causal launch, then a
+    non-causal one over the prefix written into its rows."""
+    import torch.nn.functional as F
+    b, s, h, kvh, d = (VLM_ATTN_SHAPE[k] for k in ("b", "s", "h", "kvh", "d"))
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q = torch.randn(b, s, h, d, generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn(b, s, kvh, d, generator=gen, device="cuda")
+            .bfloat16() for _ in range(2))
+    want = ops.flash_attention_plain(q, k, v, prefix=prefix).float()
+    lim = TOL["bfloat16"] * (1 + want.abs())
+    diff = (ops.flash_attention(q, k, v, prefix=prefix).float() - want).abs()
+    err = float(diff.max())
+    check(bool((diff <= lim).all()), f"prefix kernel error {err}")
+
+    def two_launches():
+        o = ops.flash_attention(q, k, v)
+        o[:, :prefix] = ops.flash_attention(
+            q[:, :prefix], k[:, :prefix], v[:, :prefix], causal=False)
+        return o
+    check(bool(((two_launches().float() - want).abs() <= lim).all()),
+          "causal plus non-causal prefix launches compute another function")
+    pos = torch.arange(s, device="cuda")
+    mask = (pos[None, :] <= pos[:, None]) | (pos[None, :] < prefix)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              enable_gqa=True)
+    check(bool(((sdpa().transpose(1, 2).float() - want).abs() <= lim).all()),
+          "scaled_dot_product_attention with the prefix mask computes "
+          "another function")
+    ms = cuda_ms(lambda: ops.flash_attention(q, k, v, prefix=prefix))
+    plain_ms = cuda_ms(
+        lambda: ops.flash_attention_plain(q, k, v, prefix=prefix))
+    lib_ms = cuda_ms(sdpa)
+    two_ms = cuda_ms(two_launches)
+    flops, nbytes = ops.cost(q.shape, k.shape, q.dtype, prefix=prefix)
+    bound_ms, bound_by = bound_of(flops, nbytes, PEAK_BF16_FLOPS)
+    print(f"timing b={b} s={s} h={h} kvh={kvh} d={d} bf16 prefix={prefix}: "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa (attn_mask, "
+          f"enable_gqa) {lib_ms:.4f} ms, causal + non-causal prefix "
+          f"launches {two_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+          f"{flops / 1e9:.2f} GFLOP); max_abs_err {err:.3e} [{card}]")
+    return dict(prefix=prefix, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+                two_launch_ms=two_ms)
 
 
 def _moe_shape(shape) -> str:

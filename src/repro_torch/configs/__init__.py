@@ -18,22 +18,21 @@ from repro_torch.configs.minicpm_2b import CONFIG as _minicpm
 from repro_torch.configs.mixtral_8x22b import CONFIG as _mixtral
 from repro_torch.configs.nemotron_4_15b import CONFIG as _nemotron
 from repro_torch.configs.olmoe_1b_7b import CONFIG as _olmoe
+from repro_torch.configs.qwen2_vl_7b import CONFIG as _qwen2_vl
 from repro_torch.configs.rwkv6_7b import CONFIG as _rwkv
 from repro_torch.configs.stablelm_1_6b import CONFIG as _stablelm
 
 REGISTRY: Dict[str, ArchConfig] = {
     c.name: c for c in (_stablelm, _deepseek, _minicpm, _nemotron, _olmoe,
-                        _mixtral, _rwkv, _jamba)}
+                        _mixtral, _rwkv, _jamba, _qwen2_vl)}
 
 # what a later slice brings, by ROADMAP.md Queue 1 item
 ROADMAP: Dict[str, str] = {
-    "vlm": "ROADMAP.md Queue 1 item 6 (VLM and audio slice)",
-    "audio": "ROADMAP.md Queue 1 item 6 (VLM and audio slice)",
+    "audio": "ROADMAP.md Queue 1 item 6b (audio: whisper-small and "
+             "models/encdec.py)",
 }
 # archs of the JAX registry the port does not run yet
-PENDING: Dict[str, str] = {
-    "qwen2-vl-7b": ROADMAP["vlm"], "whisper-small": ROADMAP["audio"],
-}
+PENDING: Dict[str, str] = {"whisper-small": ROADMAP["audio"]}
 
 
 def get_config(name: str) -> ArchConfig:

@@ -11,11 +11,15 @@ its shapes alone, with ``hlo_cost``'s conventions:
     ops that ``hlo_cost`` would see as several HLO ops (softmax, the
     sigmoid and tanh backward) count as those;
   * a reduction is 1 flop per input element (a mean adds its divide);
-  * data movement (copies, casts, concatenation, gathers) is 0 flops;
-  * bytes are operand plus output bytes per op; a gather or an index
-    write moves twice the slice it touches, as ``hlo_cost`` counts a
-    gather or a dynamic-update-slice; views and empty allocations move
-    nothing.
+  * ``floor_divide`` is 2 flops per output element: XLA lowers an
+    integer or float floor division to a ``divide`` and a ``floor`` (or
+    the sign fix-up of a truncating divide), and ``hlo_cost`` counts
+    each as one elementwise flop;
+  * ``searchsorted`` is ceil(log2 n) flops per query over a sorted axis
+    of length n: one ``compare`` per step of a binary search.  JAX's
+    default ``method="scan"`` is such a search (ceil(log2(n + 1)) steps,
+    one more only when n is a power of two); the index arithmetic and
+    selects of its loop are not counted;
   * each of the port's kernels (the ``repro_torch::*`` custom ops) is
     one op, costed by the ``cost`` it was registered with
     (``repro_torch.kernels.COSTS``).
@@ -85,8 +89,20 @@ def _dot_flops(packet, args, out: torch.Tensor) -> float:
     return 2.0 * args[0].shape[-1] * out.numel()
 
 
+def _search_flops(args, out_elems: float) -> float:
+    """ceil(log2 n) compares per query of ``searchsorted`` over a sorted
+    axis of length n (the last axis of its first argument)."""
+    n = args[0].shape[-1]
+    return math.ceil(math.log2(n)) * out_elems if n > 1 else out_elems
+
+
 _DOTS = {aten.mm, aten.bmm, aten.addmm, aten.baddbmm, aten.mv, aten.addmv,
          aten.dot}
+
+
+# ops with a rule of their own (see the module docstring)
+_DIVIDES = {aten.floor_divide}
+_SEARCHES = {aten.searchsorted}
 
 
 def known(func) -> bool:
@@ -98,6 +114,7 @@ def known(func) -> bool:
     return (func.namespace == "repro_torch" or func.is_view
             or packet in _DOTS or packet in _PER_ELEMENT
             or packet in _NO_FLOPS or packet in _FREE
+            or packet in _DIVIDES or packet in _SEARCHES
             or torch.Tag.reduction in func.tags
             or torch.Tag.pointwise in func.tags)
 
@@ -125,6 +142,10 @@ def op_cost(func, args, kwargs, out) -> Tuple[float, float]:
         flops = _PER_ELEMENT[packet] * out_elems
     elif packet in _NO_FLOPS:
         flops = 0.0
+    elif packet in _DIVIDES:
+        flops = 2.0 * out_elems
+    elif packet in _SEARCHES:
+        flops = float(_search_flops(args, out_elems))
     elif torch.Tag.reduction in func.tags:
         flops = float(args[0].numel())
         if packet is aten.mean:

@@ -6,7 +6,11 @@
 // softmax(q k^T / sqrt(d)) v with an index-based mask (causal
 // kpos <= qpos, window kpos > qpos - window), an online softmax with f32
 // running max m, running sum l and accumulator acc, and no KV tile
-// visited that the mask covers entirely.
+// visited that the mask covers entirely.  One mask the TPU kernel lacks:
+// causal with a prefix, where keys kpos < prefix are visible to every
+// row.  That is the mask of an M-RoPE prefill (Qwen2-VL): its vision
+// tokens all sit at temporal position 0, so they see each other both
+// ways, and the model masks by temporal position.
 //
 // Layout.  q/o are read and written in the model layout (b, s, h, d)
 // through their strides, k/v in (b, s_kv, kvh, d): no transpose copy.
@@ -95,7 +99,7 @@ struct Params {
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
   long long o_sb, o_ss, o_sh;
-  int causal, window;
+  int causal, window, prefix;
   float scale;
 };
 
@@ -104,7 +108,7 @@ __device__ __forceinline__ void kv_range(const Params& p, int q0, int q_last,
                                          int bk, int& first, int& end) {
   int k_begin = 0, k_end = p.skv;
   if (p.causal) {
-    k_end = min(k_end, q_last + 1);
+    k_end = min(k_end, max(q_last + 1, p.prefix));
     if (p.window > 0) k_begin = max(0, q0 - p.window + 1);
   }
   first = k_begin / bk;
@@ -213,7 +217,7 @@ __global__ void __launch_bounds__(NT) flash_f32_kernel(Params p) {
         const int cc = tx + 16 * j, kj = k0 + cc;
         bool ok = kj < p.skv;
         if (p.causal) {
-          ok = ok && kj <= qi;
+          ok = ok && (kj <= qi || kj < p.prefix);
           if (p.window > 0) ok = ok && kj > qi - p.window;
         }
         Ss[r * SST + cc] = ok ? s[i][j] : -INFINITY;
@@ -356,8 +360,11 @@ __device__ __forceinline__ int item_index(int r) {
 // Persistent: one block per SM walks work items (see item_index).  The
 // producers run ahead across items: the next item's Q goes to the other
 // of two Q buffers, its K/V tiles into the same ring, while the consumers
-// finish the current one.
-template <int D>
+// finish the current one.  PREFIX: whether p.prefix > 0, a template flag
+// so that the kernel without one masks exactly as before it existed (on
+// an H100, a run-time test in the mask cost 4-7% at s = 2048 and the
+// flag nothing).
+template <int D, bool PREFIX>
 __global__ void __launch_bounds__(NT, 1)
     flash_bf16_kernel(const Params p, int nqt) {
   using C = Cfg<D>;
@@ -471,12 +478,13 @@ __global__ void __launch_bounds__(NT, 1)
       if (j > 0 && lane == 0)
         sm90::mbar_arrive(&bar_empty[(t - 1) % C::STAGES]);
 
-    // the mask, only on tiles that cross the end of s_kv, the diagonal or
-      // the window's edge for this warpgroup's rows
+      // the mask, only on tiles that cross the end of s_kv, the diagonal
+      // (past the prefix) or the window's edge for this warpgroup's rows
       const bool edge =
           k0 + BK > p.skv ||
-          (p.causal && (k0 + BK - 1 > wq_lo ||
-                        (p.window > 0 && k0 <= wq_hi - p.window)));
+          (p.causal &&
+           ((k0 + BK - 1 > wq_lo && (!PREFIX || k0 + BK > p.prefix)) ||
+            (p.window > 0 && k0 <= wq_hi - p.window)));
       if (edge) {
 #pragma unroll
         for (int i = 0; i < BK / 8; ++i)
@@ -486,7 +494,7 @@ __global__ void __launch_bounds__(NT, 1)
             const int qi = e < 2 ? qa : qb;
             bool ok = kj < p.skv;
             if (p.causal) {
-              ok = ok && kj <= qi;
+              ok = ok && (kj <= qi || (PREFIX && kj < p.prefix));
               if (p.window > 0) ok = ok && kj > qi - p.window;
             }
             if (!ok) S[4 * i + e] = -INFINITY;
@@ -581,12 +589,12 @@ __global__ void __launch_bounds__(NT, 1)
   }
 }
 
-template <int D>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
+template <int D, bool PREFIX>
+cudaError_t launch_prefix(const Params& p, cudaStream_t stream) {
   constexpr size_t smem = Cfg<D>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_bf16_kernel<D, PREFIX>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   int device, sms;
   if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
@@ -596,8 +604,14 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   const long long items = (long long)p.b * p.h * nqt;
   if (items > 0x7fffffffLL) return cudaErrorInvalidValue;
   const int grid = static_cast<int>(items < sms ? items : sms);
-  flash_bf16_kernel<D><<<grid, NT, smem, stream>>>(p, nqt);
+  flash_bf16_kernel<D, PREFIX><<<grid, NT, smem, stream>>>(p, nqt);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch(const Params& p, cudaStream_t stream) {
+  return p.prefix > 0 ? launch_prefix<D, true>(p, stream)
+                      : launch_prefix<D, false>(p, stream);
 }
 
 }  // namespace tensor
@@ -614,7 +628,9 @@ cudaError_t launch_dtype(const Params& p, int dtype, cudaStream_t stream) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; the last
+// dtype: 0 = float32, 1 = bfloat16.  causal: mask by index, keys below
+// `prefix` visible to every row (prefix 0: plain causal; the wrapper
+// refuses a prefix with a window).  Strides are in elements; the last
 // dimension of every tensor must be contiguous; in bf16 the base pointers
 // must be 16-byte aligned and the strides multiples of 8 (the wrapper
 // checks).  `device` is the index of
@@ -627,16 +643,17 @@ extern "C" int flash_attention_fwd(
     int sq, int skv, int h, int kvh, int d, long long q_sb, long long q_ss,
     long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, long long o_sb,
-    long long o_ss, long long o_sh, int causal, int window, float scale,
-    int device, void* stream) {
-  if (b < 1 || sq < 1 || skv < 1 || h < 1 || kvh < 1 || h % kvh != 0)
+    long long o_ss, long long o_sh, int causal, int window, int prefix,
+    float scale, int device, void* stream) {
+  if (b < 1 || sq < 1 || skv < 1 || h < 1 || kvh < 1 || h % kvh != 0 ||
+      prefix < 0 || (prefix > 0 && window > 0))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
   Params p{q, k, v, o, b, sq, skv, h, kvh,
            q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
            v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
-           causal, window, scale};
+           causal, window, prefix, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (d) {

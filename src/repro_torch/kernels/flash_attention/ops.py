@@ -1,7 +1,10 @@
 """Public wrapper of the flash-attention kernel, in model layout.
 
 ``flash_attention(q, k, v)`` takes q ``(b, s, h, d)`` and k/v
-``(b, s_kv, kvh, d)`` with ``kvh`` dividing ``h``.  On a CUDA tensor it
+``(b, s_kv, kvh, d)`` with ``kvh`` dividing ``h``; causal, it masks by
+index, and keys below ``prefix`` are visible to every row (an M-RoPE
+sequence's vision tokens, all at temporal position 0, see each other
+both ways).  On a CUDA tensor it
 launches the hand-written kernel (``csrc/flash_attention.cu``: bf16 on
 the tensor cores, f32 with exact FMAs) or raises; it takes the plain
 version only for tensors on the CPU.  ``flash_attention.launches``
@@ -31,8 +34,8 @@ _MAX_GRID_Y = 65535
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True, window: int = 0
-                          ) -> torch.Tensor:
+                          *, causal: bool = True, window: int = 0,
+                          prefix: int = 0) -> torch.Tensor:
     """The kernel's function in plain PyTorch: kv heads repeated, f32
     arithmetic, output in the input dtype."""
     rep = q.shape[2] // k.shape[2]
@@ -40,12 +43,12 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         k = k.repeat_interleave(rep, dim=2)
         v = v.repeat_interleave(rep, dim=2)
     out = attention_ref(q.float(), k.float(), v.float(), causal=causal,
-                        window=window)
+                        window=window, prefix=prefix)
     return out.to(q.dtype)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           causal: bool, window: int) -> None:
+           causal: bool, window: int, prefix: int) -> None:
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"want q (b,s,h,d), k/v (b,s,kvh,d); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -67,6 +70,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"s_kv = {k.shape[1]} keys leaves query rows "
                          f"{k.shape[1] + window - 1}.. of s = {s} without "
                          f"a visible key")
+    if prefix < 0 or (prefix and window > 0):
+        raise ValueError(f"prefix {prefix} with window {window}: a prefix "
+                         f"is >= 0 and takes no window (no arch has both)")
 
 
 def check_staging(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -84,12 +90,15 @@ def check_staging(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
-    """Causal (optionally sliding-window) attention -> (b, s, h, d)."""
-    _check(q, k, v, causal, window)
+                    causal: bool = True, window: int = 0,
+                    prefix: int = 0) -> torch.Tensor:
+    """Causal (optionally sliding-window, or with a bidirectional
+    ``prefix``) attention -> (b, s, h, d)."""
+    _check(q, k, v, causal, window, prefix)
     refuse_autograd("flash_attention", q, k, v)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     prefix=prefix)
     if q.device.type != "cuda":
         raise ValueError(f"no flash_attention for device {q.device}")
     b, s, h, d = q.shape
@@ -99,46 +108,51 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"b * h = {b * h} exceeds the grid ({_MAX_GRID_Y})")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("the head dim of q, k and v must be contiguous")
-    return OP(q, k, v, causal, window)
+    return OP(q, k, v, causal, window, prefix)
 
 
-def _flash_attention_cuda(q, k, v, causal, window):
+def _flash_attention_cuda(q, k, v, causal, window, prefix):
     """The counted launch on checked CUDA inputs."""
     if q.dtype == torch.bfloat16:
         check_staging(q, k, v)
-    o = _launch(q, k, v, causal, window)
+    o = _launch(q, k, v, causal, window, prefix)
     flash_attention.launches += 1
     return o
 
 
-def _flash_attention_fake(q, k, v, causal, window):
+def _flash_attention_fake(q, k, v, causal, window, prefix):
     return q.new_empty(q.shape)
 
 
 def cost(q_shape, kv_shape, dtype: torch.dtype, causal: bool = True,
-         window: int = 0):
+         window: int = 0, prefix: int = 0):
     """(flops, bytes) of one call: 4 d flops per (query, key) pair it
     sees, causal counted as half of s x s_kv, a window as at most
-    ``window`` keys a query; q, k, v and the output each moved once."""
+    ``window`` keys a query, a prefix of p keys as p^2 / 2 more pairs
+    (the half of the p x p block above the diagonal); q, k, v and the
+    output each moved once."""
     b, s, h, d = q_shape
     s_kv, kvh = kv_shape[1], kv_shape[2]
     pairs = s * s_kv / 2 if causal else s * s_kv
     if window > 0:
         pairs = min(pairs, s * window)
+    if causal and prefix > 0:
+        p = min(prefix, s, s_kv)
+        pairs += p * p / 2
     values = 2 * b * s * h * d + 2 * b * s_kv * kvh * d
     return 4.0 * b * h * d * pairs, float(values * dtype.itemsize)
 
 
 OP = register_op("flash_attention",
-                 "(Tensor q, Tensor k, Tensor v, bool causal, int window)"
-                 " -> Tensor",
+                 "(Tensor q, Tensor k, Tensor v, bool causal, int window, "
+                 "int prefix) -> Tensor",
                  _flash_attention_cuda, _flash_attention_fake,
-                 lambda q, k, v, causal, window: cost(
-                     q.shape, k.shape, q.dtype, causal, window))
+                 lambda q, k, v, causal, window, prefix: cost(
+                     q.shape, k.shape, q.dtype, causal, window, prefix))
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-            window: int) -> torch.Tensor:
+            window: int, prefix: int) -> torch.Tensor:
     """The kernel on checked CUDA inputs; uncounted."""
     b, s, h, d = q.shape
     lib = kernel.load()
@@ -147,7 +161,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         _DTYPE_CODE[q.dtype], b, s, k.shape[1], h, k.shape[2], d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-        int(causal), int(window), 1.0 / math.sqrt(d), q.device.index,
+        int(causal), int(window), int(prefix), 1.0 / math.sqrt(d),
+        q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "

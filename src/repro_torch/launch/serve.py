@@ -37,10 +37,18 @@ def main(argv=None) -> None:
     srv = BatchServer(model, params, slots=args.slots, seq_capacity=64,
                       device=device)
     rng = np.random.default_rng(args.seed)
-    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
-                                               int(rng.integers(2, 12))),
-                    max_new_tokens=args.max_new)
-            for i in range(args.requests)]
+    reqs = []
+    for i in range(args.requests):
+        # the JAX launcher's draws, in its order: the length, a VLM's
+        # vision embeddings, then the prompt
+        plen = int(rng.integers(2, 12))
+        extras = {}
+        if cfg.family == "vlm":
+            extras["vision_embeds"] = rng.standard_normal(
+                (cfg.n_vis, cfg.d_model)).astype(np.float32) * 0.1
+        reqs.append(Request(rid=i,
+                            prompt=rng.integers(0, cfg.vocab_size, plen),
+                            max_new_tokens=args.max_new, extras=extras))
     done = srv.serve(reqs)
     for r in sorted(done, key=lambda r: r.rid):
         print(f"req {r.rid}: prompt_len={len(r.prompt)} -> {r.output}")

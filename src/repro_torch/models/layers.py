@@ -1,7 +1,7 @@
-"""Layer library of the port, dense subset: norms, partial RoPE, GQA
-attention (train mode in plain PyTorch under autograd, prefill through
-the flash kernel on the GPU, KV-cache decode), MLPs, embeddings and the
-cross-entropy loss.
+"""Layer library of the port, dense subset: norms, partial RoPE and
+M-RoPE, GQA attention (train mode in plain PyTorch under autograd,
+prefill through the flash kernel on the GPU, KV-cache decode), MLPs,
+embeddings and the cross-entropy loss.
 
 Each function mirrors the one of the same name in
 ``repro.models.layers`` and keeps its layouts: activations
@@ -49,7 +49,7 @@ def apply_norm(p: Dict, x: torch.Tensor, cfg) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Rotary embeddings (RoPE, partial RoPE)
+# Rotary embeddings (RoPE, partial RoPE, M-RoPE)
 # ---------------------------------------------------------------------------
 
 def _rot_dims(cfg) -> int:
@@ -58,21 +58,38 @@ def _rot_dims(cfg) -> int:
 
 
 def _inv_freq(rot: int, theta: float, device=None) -> torch.Tensor:
-    return theta ** (-torch.arange(0, rot, 2, dtype=torch.float32,
-                                   device=device) / rot)
+    """theta^(-i/rot) for even i < rot, computed in f64 and rounded once
+    to f32: the correctly rounded values, which JAX's f32 power gives for
+    every registry arch, where PyTorch's f32 power is an ulp off on some
+    (4 of qwen2-vl-7b's 64)."""
+    inv = theta ** (-torch.arange(0, rot, 2, dtype=torch.float64,
+                                  device=device) / rot)
+    return inv.float()
 
 
 def rope_angles(cfg, positions: torch.Tensor) -> torch.Tensor:
-    """positions (b, s) -> angles (b, s, rot//2)."""
-    if cfg.pos_scheme == "mrope":
-        raise NotImplementedError(f"M-RoPE: {ROADMAP['vlm']}")
+    """positions (...,) or, for mrope, (..., 3) -> angles (..., rot//2).
+
+    M-RoPE (Qwen2-VL) splits the ``rot//2`` frequencies into t/h/w
+    sections of ``(nf//4, (nf - nf//4)//2, rest)`` (16/24/24 at a head
+    dim of 128) and turns each section by its own coordinate."""
     inv = _inv_freq(_rot_dims(cfg), cfg.rope_theta, positions.device)
-    return positions.float()[..., None] * inv
+    pos = positions.float()
+    if cfg.pos_scheme == "mrope":
+        nf = inv.shape[0]
+        s1 = nf // 4
+        s2 = (nf - s1) // 2
+        parts, start = [], 0
+        for i, sec in enumerate((s1, s2, nf - s1 - s2)):
+            parts.append(pos[..., i:i + 1] * inv[start:start + sec])
+            start += sec
+        return torch.cat(parts, dim=-1)
+    return pos[..., None] * inv
 
 
 def apply_rope(cfg, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-    """x: (b, s, h, hd); positions: (b, s).  Rotate-half on the first
-    ``_rot_dims`` dims; the rest pass through."""
+    """x: (b, s, h, hd); positions: (b, s), or (b, s, 3) for mrope.
+    Rotate-half on the first ``_rot_dims`` dims; the rest pass through."""
     if cfg.pos_scheme in ("learned", "none"):
         return x
     rot = _rot_dims(cfg)
@@ -190,7 +207,7 @@ def blockwise_attention(q, k, v, q_pos, kv_pos, window: int = 0,
 
 def attention_train(p: Dict, x: torch.Tensor, cfg, positions: torch.Tensor,
                     chunk: int = 2048, return_kv: bool = False,
-                    mode: str = "prefill"):
+                    mode: str = "prefill", n_vis: int = 0):
     """Training/prefill attention with output projection.
 
     ``mode="train"`` is the JAX function on every device: the naive
@@ -198,10 +215,14 @@ def attention_train(p: Dict, x: torch.Tensor, cfg, positions: torch.Tensor,
     PyTorch under autograd (the flash kernel is forward-only, in both
     packages).  ``mode="prefill"`` takes those branches on the CPU and
     the flash kernel on any other device (which raises for a device it
-    has no kernel for); the kernel takes the unrepeated kv heads and
-    masks by index (prefill positions are ``0..s-1``, so index and
-    position agree).  ``return_kv`` also returns the pre-repeat
-    (b, s, kvh, hd) k and v.
+    has no kernel for).  Both mask by position, as JAX does: by the
+    temporal coordinate of M-RoPE positions (b, s, 3).  The kernel takes
+    the unrepeated kv heads and masks by index: prefill positions are
+    ``0..s-1``, or for M-RoPE (``make_positions``) ``n_vis`` vision
+    tokens at temporal position 0 followed by the text at its index, so
+    a key is visible where its index is at most the query's or below
+    ``n_vis`` (the kernel's ``prefix``).  ``return_kv`` also returns the
+    pre-repeat (b, s, kvh, hd) k and v.
     """
     if mode not in ("train", "prefill"):
         raise ValueError(f"attention_train has no mode {mode!r}")
@@ -214,15 +235,17 @@ def attention_train(p: Dict, x: torch.Tensor, cfg, positions: torch.Tensor,
     q = apply_rope(cfg, q, positions)
     k = apply_rope(cfg, k, positions)
     if mode == "train" or x.device.type == "cpu":
+        pos = positions if positions.dim() == 2 else positions[..., 0]
         kr, vr = _repeat_kv(k, cfg.n_heads), _repeat_kv(v, cfg.n_heads)
         if kr.shape[1] > chunk:
-            out = blockwise_attention(q, kr, vr, positions, positions,
+            out = blockwise_attention(q, kr, vr, pos, pos,
                                       window=cfg.sliding_window, chunk=chunk)
         else:
-            out = naive_causal_attention(q, kr, vr, positions, positions,
+            out = naive_causal_attention(q, kr, vr, pos, pos,
                                          window=cfg.sliding_window)
     else:
-        out = flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
+        out = flash_attention(q, k, v, causal=True, window=cfg.sliding_window,
+                              prefix=n_vis)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     if return_kv:
         return y, (k, v)
@@ -262,6 +285,9 @@ def attention_decode(p: Dict, x: torch.Tensor, cfg, cache: Dict,
     if cur_len.dim() == 0:
         cur_len = cur_len.expand(b)
     pos_now = cur_len[:, None]                          # (b, 1)
+    if cfg.pos_scheme == "mrope":
+        # a text token's three coordinates are all its index
+        pos_now = pos_now[..., None].expand(b, 1, 3)
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k_new = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     v_new = torch.einsum("bsd,dhk->bshk", x, p["wv"])

@@ -1,5 +1,6 @@
-"""Decoder LM assembly of the port: the dense, MoE, RWKV (``ssm``) and
-hybrid (Jamba: Mamba + attention + MoE) families.
+"""Decoder LM assembly of the port: the dense, MoE, RWKV (``ssm``),
+hybrid (Jamba: Mamba + attention + MoE) and VLM (Qwen2-VL backbone)
+families.
 
 Mirrors ``repro.models.transformer``: parameters keep the stacked
 leading layer axis, and a Python loop over layers takes the place of
@@ -11,7 +12,10 @@ state instead of a KV cache.  A hybrid arch repeats a period of
 Mamba elsewhere, ``models/mamba.py``; MoE where ``is_moe_layer``): its
 parameters and caches are a tuple of one stacked tree per position,
 each stacked over the periods, and the loop runs period by period,
-position by position.  Three modes:
+position by position.  A VLM batch carries ``vision_embeds`` (b, n_vis,
+d), the stub frontend's patch embeddings, which go in front of the
+embedded text tokens; the merged sequence takes 3-D M-RoPE positions.
+Three modes:
 
   train   -> logits over all positions, each layer checkpointed
              (recomputed in the backward pass, as ``jax.checkpoint``)
@@ -20,11 +24,13 @@ position by position.  Three modes:
              states)
   decode  -> one-token step that updates the stacked cache IN PLACE
 
-Other families raise ``NotImplementedError`` naming their ROADMAP item.
+Other families (audio) raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -37,7 +43,7 @@ from repro_torch.models import moe as me
 from repro_torch.models import rwkv as rw
 from repro_torch.models.common import TensorSpec, cast, map_leaves, stack_inits
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 MODES = ("train", "prefill", "decode")
 
 
@@ -164,11 +170,21 @@ def init_cache(cfg, batch: int, seq_len: int, device: torch.device,
                       cache_spec(cfg, batch, seq_len, dtype))
 
 
-def make_positions(cfg, b: int, s: int, device: torch.device) -> torch.Tensor:
-    """Sequential positions (b, s)."""
-    if cfg.pos_scheme == "mrope":
-        raise NotImplementedError(f"M-RoPE positions: {ROADMAP['vlm']}")
-    return torch.arange(s, device=device).expand(b, s)
+def make_positions(cfg, b: int, s: int, device: torch.device,
+                   n_vis: int = 0, offset: int = 0) -> torch.Tensor:
+    """Sequential positions (b, s); for M-RoPE, 3-D positions (b, s, 3):
+    vision token i at (0, i // grid, i % grid) over a square patch grid
+    of side ``max(1, int(sqrt(n_vis)))``, each text token at its sequence
+    index in all three coordinates (so a decode step at ``cur_len``
+    needs no ``n_vis``); ``offset`` is added to every coordinate."""
+    if cfg.pos_scheme != "mrope":
+        return torch.arange(offset, offset + s, device=device).expand(b, s)
+    grid = max(1, int(math.sqrt(max(n_vis, 1))))
+    vis = torch.arange(n_vis, device=device)
+    txt = torch.arange(n_vis, s, device=device)
+    p3 = torch.stack([torch.cat([c, txt]) for c in (
+        torch.zeros_like(vis), vis // grid, vis % grid)], dim=-1) + offset
+    return p3.expand(b, s, 3)
 
 
 # ---------------------------------------------------------------------------
@@ -177,13 +193,14 @@ def make_positions(cfg, b: int, s: int, device: torch.device) -> torch.Tensor:
 
 def apply_layer(p: Dict, x: torch.Tensor, cfg, layer_idx: int, positions,
                 mode: str, cache: Optional[Dict], cur_len, chunk: int,
-                seq_capacity: int
+                seq_capacity: int, n_vis: int = 0
                 ) -> Tuple[torch.Tensor, Optional[Dict],
                            Optional[torch.Tensor]]:
     """Returns (x, new_cache_entry, aux_loss); the cache entry is None in
     train mode, and aux is None for a dense FFN or an RWKV layer, which
     add nothing (and launch nothing) to the sum.  ``layer_idx`` is the
-    layer's position in its period (0 for a period-1 arch)."""
+    layer's position in its period (0 for a period-1 arch); ``n_vis``
+    the vision tokens in front of the sequence (``attention_train``)."""
     kind = layer_kind(cfg, layer_idx)
     if kind == "rwkv":
         return _apply_rwkv_layer(p, x, cfg, mode, cache)
@@ -202,12 +219,13 @@ def apply_layer(p: Dict, x: torch.Tensor, cfg, layer_idx: int, positions,
                                              cur_len)
     elif mode == "prefill":
         mix, (k_raw, v_raw) = ll.attention_train(
-            p["mixer"], h, cfg, positions, chunk=chunk, return_kv=True)
+            p["mixer"], h, cfg, positions, chunk=chunk, return_kv=True,
+            n_vis=n_vis)
         new_cache = ll.kv_to_cache(k_raw, v_raw,
                                    kv_capacity(cfg, seq_capacity))
     else:
         mix = ll.attention_train(p["mixer"], h, cfg, positions, chunk=chunk,
-                                 mode="train")
+                                 mode="train", n_vis=n_vis)
     x = x + rs * mix
     h2 = ll.apply_norm(p["norm2"], x, cfg)
     aux = None
@@ -266,7 +284,7 @@ def _unstack(tree: Dict, n: int) -> List[Dict]:
 
 def decoder_forward(layers_params, x: torch.Tensor, cfg, positions,
                     mode: str, cache=None, cur_len=None, chunk: int = 2048,
-                    seq_capacity: int = 0
+                    seq_capacity: int = 0, n_vis: int = 0
                     ) -> Tuple[torch.Tensor, Any, torch.Tensor]:
     """Run the decoder stack -> (x, cache, aux_loss summed over layers).
     Train returns no cache; prefill returns a new stacked cache in the
@@ -293,10 +311,11 @@ def decoder_forward(layers_params, x: torch.Tensor, cfg, positions,
             if mode == "train":
                 x, nc, a = checkpoint(apply_layer, lp, x, cfg, pos,
                                       positions, mode, None, None, chunk,
-                                      seq_capacity, use_reentrant=False)
+                                      seq_capacity, n_vis,
+                                      use_reentrant=False)
             else:
                 x, nc, a = apply_layer(lp, x, cfg, pos, positions, mode, lc,
-                                       cur_len, chunk, seq_capacity)
+                                       cur_len, chunk, seq_capacity, n_vis)
             if a is not None:
                 aux = aux + a
             new[pos].append(nc)
@@ -324,6 +343,11 @@ def lm_apply(params: Dict, batch: Dict, cfg, mode: str = "prefill",
       prefill: logits (b, 1, Vp) at the last position, + cache
       decode : logits (b, 1, Vp), + the cache updated in place
 
+    A VLM batch's ``vision_embeds`` (b, n_vis, d) are cast to the
+    activations' dtype and put in front of the embedded tokens; s, the
+    positions, the cache and train mode's labels and mask then cover
+    ``n_vis + s_text``.
+
     Leaves not in ``compute_dtype`` are cast here, on every call, as the
     JAX function does: train mode takes the f32 master params (with
     ``requires_grad``), so the cast is part of the graph and the
@@ -335,14 +359,21 @@ def lm_apply(params: Dict, batch: Dict, cfg, mode: str = "prefill",
         raise ValueError(f"mode {mode!r}; one of {MODES}")
     params = cast(params, compute_dtype)
     tokens = batch["tokens"]
-    b, s = tokens.shape
+    b = tokens.shape[0]
     x = ll.embed_tokens(params["embed"], tokens, cfg)
+    n_vis = 0
+    if "vision_embeds" in batch:
+        vis = batch["vision_embeds"].to(x.dtype)
+        n_vis = vis.shape[1]
+        x = torch.cat([vis, x], dim=1)
+    s = x.shape[1]
     positions = None
     if mode != "decode":
-        positions = make_positions(cfg, b, s, tokens.device)
+        positions = make_positions(cfg, b, s, tokens.device, n_vis=n_vis)
     x, new_cache, aux = decoder_forward(
         params["layers"], x, cfg, positions, mode=mode, cache=cache,
-        cur_len=cur_len, chunk=chunk, seq_capacity=seq_capacity)
+        cur_len=cur_len, chunk=chunk, seq_capacity=seq_capacity,
+        n_vis=n_vis)
     if mode != "train":
         x = x[:, -1:]
     x = ll.apply_norm(params["final_norm"], x, cfg)

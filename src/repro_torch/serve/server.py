@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -36,6 +36,9 @@ class Request:
     prompt: np.ndarray                 # (prompt_len,) int
     max_new_tokens: int = 16
     eos_token: Optional[int] = None
+    # further prefill inputs, each without its batch axis (a VLM's
+    # "vision_embeds" (n_vis, d_model)):
+    extras: Dict[str, Any] = field(default_factory=dict)
     # filled by the server:
     output: List[int] = field(default_factory=list)
     submit_time: float = 0.0
@@ -69,6 +72,14 @@ class BatchServer:
 
         Requests must carry unique rids and prompts must fit
         ``seq_capacity``; the policy raises ``ValueError`` otherwise.
+
+        A request's ``extras`` go into its prefill batch beside the
+        tokens.  As in the JAX server, admission counts ``len(prompt)``
+        and the first decode step runs at ``cur_len = len(prompt)`` even
+        when the extras put vision tokens in front of the prompt: that
+        step writes its KV inside the prefilled region and takes the
+        position ``len(prompt)``, not ``n_vis + len(prompt)``.  The port
+        reproduces the reference token for token, fault included.
         """
         B, cap, dev = self.slots, self.seq_capacity, self.device
         cache = self.model.init_cache(B, cap, dev)
@@ -86,7 +97,10 @@ class BatchServer:
             t0 = time.perf_counter()
             tokens = torch.as_tensor(np.asarray(req.prompt)[None],
                                      dtype=torch.int64, device=dev)
-            logits, rcache = self._prefill(self.params, {"tokens": tokens})
+            batch = {"tokens": tokens,
+                     **{k: torch.as_tensor(v, device=dev)[None]
+                        for k, v in req.extras.items()}}
+            logits, rcache = self._prefill(self.params, batch)
             # every leaf (a hybrid arch's cache is a tuple of per-position
             # dicts) in place, in the leaf's dtype: recurrent states stay f32
             map_leaves(lambda c, r: c[:, slot].copy_(r[:, 0]), cache, rcache)

@@ -43,7 +43,7 @@ from repro.sim import v5e_pod
 from repro.train import TrainOptions as JaxTrainOptions
 from repro.train import build_train_step as jax_build_train_step
 from repro.train import init_train_state as jax_init_train_state
-from repro_torch.configs import get_config, smoke
+from repro_torch.configs import REGISTRY, get_config, smoke
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.core import fidelity as tf
 from repro_torch import kernels
@@ -249,7 +249,7 @@ def _plain_flops(name, args):
         return tf.DryRunBackend().run(
             tf.StepProgram(name, fn, specs, device="cpu")).flops
     if name == "flash_attention":
-        q, k, v, causal, window = args
+        q, k, v, causal, window, prefix = args
         pos = TensorSpec(q.shape[:2], torch.int64)
         return dry(lambda *a: _attention_plain(*a, window), q, k, v, pos)
     if name == "expert_mlp":
@@ -261,10 +261,22 @@ def _plain_flops(name, args):
     raise KeyError(name)
 
 
+def _prefill_batch(cfg, b: int, s: int):
+    """The specs of a prefill batch of ``s`` positions, as JAX's
+    ``Model.input_specs`` gives them: a VLM's tokens are ``s - n_vis``
+    and its ``vision_embeds`` (b, n_vis, d_model) bf16."""
+    if cfg.family != "vlm":
+        return {"tokens": TensorSpec((b, s), torch.int64)}
+    return {"tokens": TensorSpec((b, s - cfg.n_vis), torch.int64),
+            "vision_embeds": TensorSpec((b, cfg.n_vis, cfg.d_model),
+                                        torch.bfloat16)}
+
+
 @pytest.mark.parametrize("arch,want", [
     ("stablelm-1.6b", {"flash_attention": 4}),
     ("olmoe-1b-7b", {"flash_attention": 4, "expert_mlp": 4}),
-    ("rwkv6-7b", {"wkv6": 4})])
+    ("rwkv6-7b", {"wkv6": 4}),
+    ("qwen2-vl-7b", {"flash_attention": 4})])
 def test_prefill_on_fake_cuda_counts_the_kernel_ops(arch, want, monkeypatch):
     """A smoke prefill on fake CUDA tensors, on this host with no card:
     each kernel is one custom op, once per layer, at its ``cost``; no
@@ -274,7 +286,7 @@ def test_prefill_on_fake_cuda_counts_the_kernel_ops(arch, want, monkeypatch):
     cfg = smoke(get_config(arch))
     model = build_model(cfg)
     params = specs_of(model.load(model.init(0, "cpu"), "cpu"))
-    batch = {"tokens": TensorSpec((2, 64), torch.int64)}
+    batch = _prefill_batch(cfg, 2, 64)
     calls = []
     for name, fn in list(kernels.COSTS.items()):
         monkeypatch.setitem(kernels.COSTS, name,
@@ -301,6 +313,49 @@ def test_prefill_on_fake_cuda_counts_the_kernel_ops(arch, want, monkeypatch):
 
 def _refuse(*a, **kw):
     raise AssertionError("a dry run reached the real kernel path")
+
+
+def test_moe_dispatch_ops_have_cost_rules():
+    """``floor_divide`` is a divide and a floor, 2 flops an element;
+    ``searchsorted`` ceil(log2 n) compares a query over n sorted values;
+    both are ``known``, so a smoke olmoe prefill, whose dispatch runs
+    them, reports no op without a rule, on either path."""
+    from repro_torch.core import op_cost
+    aten = torch.ops.aten
+    assert op_cost.known(aten.floor_divide.default)
+    assert op_cost.known(aten.searchsorted.Tensor)
+    with op_cost.CostMode() as mode:
+        torch.searchsorted(torch.arange(100.0), torch.arange(8.0))
+        torch.arange(10) // 3
+    assert [(n, f) for n, f, _ in mode.ops if "arange" not in n] == [
+        ("aten.searchsorted.Tensor", 7.0 * 8), ("aten.floor_divide.default",
+                                                2.0 * 10)]
+    assert not mode.unknown
+    cfg = smoke(get_config("olmoe-1b-7b"))
+    model = build_model(cfg)
+    params = specs_of(model.load(model.init(0, "cpu"), "cpu"))
+    for dev in ("cuda", "cpu"):
+        rep = tf.DryRunBackend().run(tf.StepProgram(
+            "olmoe prefill", build_prefill_step(model),
+            (params, _prefill_batch(cfg, 2, 64)), device=dev))
+        assert rep.detail["unknown_ops"] == {}, dev
+        names = {n for n, _, _ in rep.detail["ops"]}
+        assert {"aten.searchsorted.Tensor",
+                "aten.floor_divide.default"} <= names
+
+
+@pytest.mark.parametrize("arch", sorted(REGISTRY))
+def test_every_arch_dry_run_has_a_cost_rule_for_every_op(arch):
+    """The smoke prefill of every arch the port runs, on fake CUDA
+    tensors (the kernel path): no op is costed without a rule."""
+    cfg = smoke(get_config(arch))
+    model = build_model(cfg)
+    params = specs_of(model.load(model.init(0, "cpu"), "cpu"))
+    rep = tf.DryRunBackend().run(tf.StepProgram(
+        f"{arch} prefill", build_prefill_step(model),
+        (params, _prefill_batch(cfg, 2, 64)), device="cuda"))
+    assert rep.detail["unknown_ops"] == {}
+    assert rep.flops > 0
 
 
 @pytest.mark.parametrize("index", [
@@ -354,7 +409,7 @@ def test_dry_run_with_autograd_on_fake_cuda_needs_a_card():
 def _flash_case():
     q = torch.randn(2, 40, 4, 16)
     kv = torch.randn(2, 40, 2, 16)
-    return (flash_ops.OP, (q, kv, kv, True, 0),
+    return (flash_ops.OP, (q, kv, kv, True, 0, 0),
             lambda: flash_ops.flash_attention_plain(q, kv, kv))
 
 
@@ -401,6 +456,10 @@ def test_fake_outputs_are_the_plain_versions(case):
     # unit, as PERF.md writes it)
     ("flash_attention", ((1, 2048, 32, 64), (1, 2048, 32, 64),
                          torch.bfloat16), "17.18 G", "33.55 M"),
+    ("flash_attention", ((1, 2048, 28, 128), (1, 2048, 4, 128),
+                         torch.bfloat16), "30.06 G", "33.55 M"),
+    ("flash_attention", ((1, 2048, 28, 128), (1, 2048, 4, 128),
+                         torch.bfloat16, True, 0, 256), "30.53 G", "33.55 M"),
     ("moe_mlp", ((1, 64, 320, 2048), (64, 2048, 1024), torch.bfloat16),
      "257.70 G", "973.08 M"),
     ("moe_mlp", ((4, 64, 1, 2048), (64, 2048, 1024), torch.bfloat16),

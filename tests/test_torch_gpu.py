@@ -95,6 +95,33 @@ def test_flash_attention_kernel_jamba_heads(card, s, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,prefix", [(1, 0), (129, 0), (415, 0), (2048, 0),
+                                      (129, 256), (415, 256), (2048, 256),
+                                      (300, 100), (255, 128)])
+def test_flash_attention_kernel_qwen2_vl_heads(card, s, prefix, dtype):
+    """qwen2-vl-7b's attention: GQA 28/4 (seven query heads a kv head) at
+    d=128, causal, at ragged lengths and 2048, plain and with a vision
+    prefix (keys below ``prefix`` visible to every row; 256 exceeds 129).
+    q, k and v are strided views of one tensor built by ``torch.cat``, as
+    the merged vision-and-text sequence's projections may be."""
+    gen = torch.Generator(device=card).manual_seed(s + prefix)
+    x = torch.cat([torch.randn(1, min(prefix, s), 36, 128, generator=gen,
+                               device=card),
+                   torch.randn(1, s - min(prefix, s), 36, 128, generator=gen,
+                               device=card)], dim=1).to(dtype)
+    q, k, v = x.split([28, 4, 4], dim=2)
+    assert s == 1 or not q.is_contiguous()
+    n0 = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, prefix=prefix)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == n0 + 1
+    want = ops.flash_attention_plain(q, k, v, prefix=prefix)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_not_causal(card, dtype):
     """causal=False, and fewer keys than queries (index-based masks)."""
     gen = torch.Generator(device=card).manual_seed(1)
@@ -153,7 +180,7 @@ def test_flash_attention_kernel_window_past_s_kv(card, dtype):
         q, k, v = qkv(2, 400, 100, 32, 8, d)
         with pytest.raises(ValueError, match="without a visible key"):
             ops.flash_attention(q, k, v, causal=True, window=32)
-        got = ops._launch(q, k, v, True, 32)
+        got = ops._launch(q, k, v, True, 32, 0)
         want = ops.flash_attention_plain(q, k, v, causal=True, window=32)
         torch.cuda.synchronize()
         seen = 100 + 32 - 1  # rows 0 .. 130 see a key
@@ -483,6 +510,45 @@ def test_smoke_jamba_serves_through_the_kernels(card, monkeypatch):
         assert bool(torch.isfinite(g).all())
         scale = float(w.float().abs().max())
         assert float((g.float() - w.float()).abs().max()) <= 2e-2 * scale
+
+
+@pytest.mark.gpu
+def test_qwen2_vl_prefill_through_the_kernel(card, monkeypatch):
+    """qwen2-vl-7b at full width cut to 2 of its 28 layers, in bf16: a
+    prefill of 256 vision and 159 text tokens launches the flash kernel
+    once a layer and agrees with the same model with the plain version
+    in the kernel's place, within 2e-2 of the largest logit, with the
+    same argmax; a decode step launches nothing."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, layers
+    cfg = dataclasses.replace(get_config("qwen2-vl-7b"), n_layers=2)
+    model = build_model(cfg)
+    params = model.load(model.init(0, card), card)
+    gen = torch.Generator(device=card).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, 159),
+                                     generator=gen, device=card),
+             "vision_embeds": 0.1 * torch.randn(1, cfg.n_vis, cfg.d_model,
+                                                generator=gen, device=card)}
+
+    def run():
+        n0 = ops.flash_attention.launches
+        logits, cache = model.prefill(params, batch, seq_capacity=512)
+        launched = ops.flash_attention.launches - n0
+        step, _ = model.decode(params, {"tokens": batch["tokens"][:, :1]},
+                               cache, 415)
+        torch.cuda.synchronize()
+        assert ops.flash_attention.launches - n0 == launched
+        return logits[0, -1].float(), launched
+
+    got, launched = run()
+    assert launched == cfg.n_layers
+    monkeypatch.setattr(layers, "flash_attention", ops.flash_attention_plain)
+    want, launched = run()
+    assert launched == 0
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 2e-2 * float(want.abs().max())
+    assert int(got.argmax()) == int(want.argmax())
 
 
 @pytest.mark.gpu

@@ -155,14 +155,23 @@ def test_unported_archs_and_families_name_their_roadmap_item():
     from dataclasses import replace
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("qwen2-vl-7b")
+    with pytest.raises(KeyError, match="ROADMAP.md Queue 1 item 6b"):
+        get_config("whisper-small")
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("no-such-arch")
-    vlm = replace(get_config("stablelm-1.6b"), family="vlm")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(vlm)
+    audio = replace(get_config("stablelm-1.6b"), family="audio")
+    with pytest.raises(NotImplementedError, match="item 6b"):
+        build_model(audio)
     assert get_config("jamba-v0.1-52b").family == "hybrid"
+    assert get_config("qwen2-vl-7b").family == "vlm"
+
+
+def test_launcher_serves_qwen2_vl_on_cpu(capsys):
+    from repro_torch.launch import serve as launch_serve
+    launch_serve.main(["--arch", "qwen2-vl-7b", "--requests", "3",
+                       "--max-new", "2", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "req 2:" in out and "server.requests 3" in out
 
 
 def test_config_copies_match_the_jax_package():

@@ -68,6 +68,21 @@ def test_norm(arch, dtype):
     close(want, tl.apply_norm(to_torch(p, dtype), xt, cfg), dtype)
 
 
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "olmoe-1b-7b",
+                                  "mixtral-8x22b", "deepseek-67b",
+                                  "minicpm-2b", "nemotron-4-15b",
+                                  "jamba-v0.1-52b", "qwen2-vl-7b"])
+def test_inv_freq_matches_jax_at_full_width(arch):
+    """The inverse frequencies at each arch's full head dim and theta
+    equal JAX's bit for bit (an f32 power in PyTorch is an ulp off on
+    some of them; the port rounds an f64 power once)."""
+    jcfg, cfg = jax_get_config(arch), get_config(arch)
+    rot = tl._rot_dims(cfg)
+    want = np.asarray(jl._inv_freq(rot, jcfg.rope_theta))
+    np.testing.assert_array_equal(
+        tl._inv_freq(rot, cfg.rope_theta).numpy(), want)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("rope_pct", [0.25, 1.0])
 def test_rope(rope_pct, dtype):
