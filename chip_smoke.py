@@ -5,7 +5,7 @@
     python3 chip_smoke.py --kernel-times [--src DIR]
     python3 chip_smoke.py --path-times [--src DIR]
 
-Six paths, each at full width with random weights from --seed, in bf16:
+Seven paths, each at full width with random weights from --seed, in bf16:
 stablelm-1.6b served (dense; prefill attention in the flash-attention
 kernel), olmoe-1b-7b served (MoE; the same attention kernel, and the
 expert FFN in the moe_mlp kernel), stablelm-1.6b trained (AdamW with int8
@@ -16,7 +16,9 @@ attention and MoE; the attention layer's prefill in the flash kernel,
 every MoE FFN in moe_mlp, the Mamba scan in plain PyTorch as in JAX), and
 qwen2-vl-7b served (the VLM backbone: M-RoPE, a 256-token vision prefix
 in front of every prompt; prefill attention in the flash kernel at GQA
-28/4, its mask the vision prefix's, see phase 3).
+28/4, its mask the vision prefix's, see phase 3), and whisper-small
+served (encoder-decoder: 1500 encoder frames a request; flash not causal
+in the encoder and in cross attention, causal in the decoder).
 Phases, each of which raises on failure (the script then exits non-zero):
 
 1. card     -- the card's name and power limit (nvidia-smi), torch and CUDA
@@ -29,7 +31,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
                GQA, d=16 and 32, windows that end inside a tile,
                olmoe's heads, and qwen2-vl-7b's GQA 28/4 at d=128 with and
                without a vision prefix (keys below the prefix visible to
-               every row); moe_mlp over its sweep of
+               every row), and whisper-small's heads not causal over 1500
+               keys (its encoder, and cross attention from 1, 129 and 416
+               queries); moe_mlp over its sweep of
                tests/test_kernels.py and olmoe's widths at the ragged
                capacities its prefill and decode give, decode steps of
                4 and 8 slots and of C > 1 folded into one row tile, then at
@@ -97,8 +101,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
                exist), jamba-v0.1-52b at all 32 layers (4 flash and 16
                moe_mlp; 104 GB of bf16 params never exist), qwen2-vl-7b
                (28 flash; 1792 tokens and the 256-token vision prefix,
-               flops within 1% of the analytic count), each with every
-               op costed by a rule, and the
+               flops within 1% of the analytic count), whisper-small (36
+               flash; 416 tokens and 1500 frames, flops within 1% of the
+               analytic count), each with every op costed by a rule, and
+               the
                train cell's step (15 quantize ops, no forward-only
                kernel): no launch, no device memory, each total beside
                the analytic 2 N tokens plus attention (and the Mamba
@@ -125,6 +131,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
                decode step); flash at GQA 28/4 d=128 against SDPA
                (enable_gqa), and alone with the 256-key prefix; phase 7
                for it
+19. whisper -- qwen2-vl freed; whisper-small at full width and depth (12
+               encoder layers over 1500 frames, 12 decoder layers, 285.5
+               M params); phase 4 on a 416-token prompt and its frames (the
+               plain flash in the kernel's place); phase 5 at a 448-token
+               capacity (its decoder context), prompts of 16-416 tokens,
+               every request with frames drawn from the seed (exactly 288
+               = 36 x 8 flash launches, none in a decode step); flash
+               against SDPA at the encoder's shape (not causal, 1500 x
+               1500) and at cross attention's (416 x 1500); phase 7 for it
 
 Every kernel's bound is its ``cost`` (flops, bytes) in its ``ops.py``, the
 definition the dry run's kernel ops are costed by.  It prints the fidelity
@@ -135,8 +150,9 @@ it exits non-zero and prints no result.
 
 ``--kernel-times`` runs only phases 1 and 2 for the flash_attention,
 moe_mlp and wkv6 kernels and their timings (phase 6's at stablelm's,
-olmoe's and qwen2-vl's attention shapes; phase 8's at olmoe's prefill
-and decode, and at jamba's and mixtral's prefill, and the waves; wkv6 at
+olmoe's and qwen2-vl's attention shapes and whisper-small's two; phase
+8's at olmoe's prefill and decode, and at jamba's and mixtral's prefill,
+and the waves; wkv6 at
 rwkv6-7b's prefill shape and at each prompt length of the serve run,
 each checked once against its plain version, with its bound and share
 of the bound), then
@@ -259,6 +275,21 @@ VLM_ATTN_SHAPE = dict(b=1, s=2048, h=28, kvh=4, d=128)
 # the model phase: as stablelm's, the two paths differ only in the order
 # of f32 sums inside attention; 28 layers spread the one-ulp flips
 VLM_LOGIT_RTOL = 0.05
+# whisper-small at full width and depth: 12 encoder layers over its 1500
+# frames, 12 decoder layers (285.5 M params); prompts and new tokens within
+# its published 448-token decoder context (max_target_positions,
+# hf:openai/whisper-small).  A prefill launches flash 36 times: the
+# encoder's (non-causal, 1500 x 1500), the decoder's self attention
+# (causal) and its cross attention (non-causal over the 1500 frames).
+WHISPER_ARCH = "whisper-small"
+WHISPER_CAP, WHISPER_PROMPT = 448, 416
+WHISPER_LENS = (16, WHISPER_PROMPT + 1)
+WHISPER_ENC_SHAPE = dict(b=1, s=1500, h=12, d=64, causal=False)
+WHISPER_CROSS_SHAPE = dict(b=1, s=WHISPER_PROMPT, s_kv=1500, h=12, d=64,
+                           causal=False)
+# the model phase: as stablelm's, the two paths differ only in the order
+# of f32 sums inside attention; 24 layers spread the one-ulp flips
+WHISPER_LOGIT_RTOL = 0.05
 
 
 def check(cond: bool, msg: str) -> None:
@@ -331,7 +362,11 @@ def kernel_times(torch, np, card: str, src: Path, seed: int) -> None:
              f"{MOE_ARCH} attention": phase_timing(torch, ops,
                                                    MOE_ATTN_SHAPE),
              f"{VLM_ARCH} attention": phase_timing(torch, ops,
-                                                   VLM_ATTN_SHAPE)}
+                                                   VLM_ATTN_SHAPE),
+             f"{WHISPER_ARCH} encoder attention": phase_timing(
+                 torch, ops, WHISPER_ENC_SHAPE),
+             f"{WHISPER_ARCH} cross attention": phase_timing(
+                 torch, ops, WHISPER_CROSS_SHAPE)}
     shapes = {f"{MOE_ARCH} prefill": MOE_PREFILL,
               f"{MOE_ARCH} decode": MOE_DECODE,
               **{f"{a} prefill": sh for a, sh in MOE_LARGE_F_PREFILL.items()}}
@@ -457,23 +492,32 @@ def phase_sweep(torch, ops) -> None:
              (1, 129, 28, 4, 128, 0), (1, 1, 28, 4, 128, 0),
              (1, 2048, 28, 4, 128, 0, 256), (1, 415, 28, 4, 128, 0, 256),
              (1, 129, 28, 4, 128, 0, 256), (1, 300, 4, 2, 64, 0, 100),
-             (2, 255, 4, 1, 32, 0, 128)]
+             (2, 255, 4, 1, 32, 0, 128),
+             # whisper-small: the encoder (not causal over its 1500
+             # frames), then cross attention (not causal, s_kv = 1500)
+             # at its longest prompt, one token, and across a tile edge
+             (1, 1500, 12, 12, 64, None, 0, 1500),
+             (1, 416, 12, 12, 64, None, 0, 1500),
+             (1, 1, 12, 12, 64, None, 0, 1500),
+             (1, 129, 12, 12, 64, None, 0, 1500)]
     gen = torch.Generator(device="cuda").manual_seed(1)
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
-        for b, s, h, kvh, d, win, *prefix in sweep:
+        for b, s, h, kvh, d, win, *extra in sweep:
+            prefix, s_kv = extra + [0, s][len(extra):]
             q = torch.randn(b, s, h, d, generator=gen, device="cuda").to(dtype)
-            k = torch.randn(b, s, kvh, d, generator=gen, device="cuda").to(dtype)
-            v = torch.randn(b, s, kvh, d, generator=gen, device="cuda").to(dtype)
-            kw = dict(causal=win is not None, window=win or 0,
-                      prefix=prefix[0] if prefix else 0)
+            k = torch.randn(b, s_kv, kvh, d, generator=gen,
+                            device="cuda").to(dtype)
+            v = torch.randn(b, s_kv, kvh, d, generator=gen,
+                            device="cuda").to(dtype)
+            kw = dict(causal=win is not None, window=win or 0, prefix=prefix)
             got = ops.flash_attention(q, k, v, **kw)
             want = ops.flash_attention_plain(q, k, v, **kw)
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs()
             lim = TOL[name] * (1 + want.float().abs())
             ok = bool((err <= lim).all()) and bool(torch.isfinite(got).all())
-            case = (f"{name} b={b} s={s} h={h} kvh={kvh} d={d} "
+            case = (f"{name} b={b} s={s} s_kv={s_kv} h={h} kvh={kvh} d={d} "
                     f"causal={kw['causal']} window={kw['window']} "
                     f"prefix={kw['prefix']}")
             print(f"sweep {case}: max_abs_err={float(err.max()):.3e} "
@@ -481,15 +525,21 @@ def phase_sweep(torch, ops) -> None:
             check(ok, f"kernel disagrees with its plain version ({case})")
 
 
-def vision_extras(cfg, rng) -> dict:
-    """A VLM request's stub frontend output, (n_vis, d_model) patch
-    embeddings drawn from ``rng`` as the launchers draw them; nothing,
-    and no draw, for other families."""
+def request_extras(cfg, rng) -> dict:
+    """A request's stub frontend output drawn from ``rng`` as the
+    launchers draw it: a VLM's (n_vis, d_model) patch embeddings, an
+    encoder-decoder's (enc_seq, d_model) frame embeddings; nothing, and
+    no draw, for other families."""
     import numpy as np
-    if cfg.family != "vlm":
-        return {}
-    return {"vision_embeds": (rng.standard_normal((cfg.n_vis, cfg.d_model))
-                              * 0.1).astype(np.float32)}
+
+    def draw(rows):
+        return (rng.standard_normal((rows, cfg.d_model))
+                * 0.1).astype(np.float32)
+    if cfg.family == "vlm":
+        return {"vision_embeds": draw(cfg.n_vis)}
+    if cfg.family == "audio":
+        return {"enc_embeds": draw(cfg.enc_seq)}
+    return {}
 
 
 def on_card(torch, extras: dict) -> dict:
@@ -502,18 +552,28 @@ def n_vis_of(cfg) -> int:
     return cfg.n_vis if cfg.family == "vlm" else 0
 
 
+def flash_per_prefill(cfg) -> int:
+    """Flash launches of one prefill: one per attention layer; an
+    encoder-decoder's encoder layers, and two per decoder layer (self and
+    cross attention)."""
+    if cfg.family == "audio":
+        return cfg.enc_layers + 2 * cfg.n_layers
+    return layer_plan(cfg)[0].count("attn")
+
+
 def phase_model(torch, np, cfg, model, params, seed: int, swaps,
-                rtol: float) -> None:
-    """A 2048-token prefill through the kernel path (a VLM's: its vision
-    prefix and 2048 - n_vis text tokens), then through the same model
-    with each kernel's wrapper ``module.<name>`` of ``swaps`` (``(module,
-    name, plain)``) replaced by its plain version, here only; the last
-    position's logits compared."""
+                rtol: float, prompt_len: int = 2048) -> None:
+    """A ``prompt_len``-token prefill through the kernel path (a VLM's:
+    its vision prefix and prompt_len - n_vis text tokens; an
+    encoder-decoder's: the tokens and its frames), then through the same
+    model with each kernel's wrapper ``module.<name>`` of ``swaps``
+    (``(module, name, plain)``) replaced by its plain version, here only;
+    the last position's logits compared."""
     from repro_torch.models.layers import padded_vocab
     rng = np.random.default_rng(seed)
-    prompt = rng.integers(0, cfg.vocab_size, 2048 - n_vis_of(cfg))
+    prompt = rng.integers(0, cfg.vocab_size, prompt_len - n_vis_of(cfg))
     batch = {"tokens": torch.as_tensor(prompt, device="cuda")[None],
-             **on_card(torch, vision_extras(cfg, rng))}
+             **on_card(torch, request_extras(cfg, rng))}
     t0 = time.perf_counter()
     logits_k, _ = model.prefill(params, batch)
     torch.cuda.synchronize()
@@ -536,7 +596,7 @@ def phase_model(torch, np, cfg, model, params, seed: int, swaps,
     err = float((lk - lp).abs().max())
     scale = float(lp.abs().max())
     top2 = torch.topk(lp, 2).values
-    print(f"model {cfg.name} prefill s=2048 bf16: kernel path "
+    print(f"model {cfg.name} prefill s={prompt_len} bf16: kernel path "
           f"{t_k * 1e3:.1f} ms (first call); plain {name} in its place: "
           f"max|dlogit|={err:.4e} vs max|logit|={scale:.4f} (tol {rtol} x "
           f"max|logit|); argmax kernel {int(lk.argmax())} plain "
@@ -555,30 +615,33 @@ def layer_plan(cfg):
             sum(cfg.is_moe_layer(p) for p in pos))
 
 
-def serve_lengths(rng):
-    """The serve run's prompt lengths, the first draw of its generator."""
-    return rng.integers(128, 2049, SERVE_REQUESTS)
+def serve_lengths(rng, lens=(128, 2049)):
+    """The serve run's prompt lengths in [lo, hi), the first draw of its
+    generator."""
+    return rng.integers(*lens, SERVE_REQUESTS)
 
 
 def phase_serve(torch, np, cfg, model, params, counters, seed: int,
-                card: str):
+                card: str, lens_range=(128, 2049), cap: int = SERVE_CAP):
     """The main path: every launch count set to 0 just before the serve
-    run and read just after.  Each prefill launches the flash kernel once
-    per attention layer and wkv6 once per RWKV layer; moe_mlp runs once
-    per MoE layer of every prefill and every decode step; no other kernel
-    runs in a decode step.  A VLM's requests carry their vision prefix
-    (``extras``), and each merged prompt with its new tokens fits the
-    capacity: no KV ring wraps."""
+    run and read just after.  Each prefill launches the flash kernel
+    ``flash_per_prefill`` times and wkv6 once per RWKV layer; moe_mlp
+    runs once per MoE layer of every prefill and every decode step; no
+    other kernel runs in a decode step.  A VLM's requests carry their
+    vision prefix (``extras``), an encoder-decoder's its frames; each
+    merged prompt with its new tokens fits the capacity ``cap``: no KV
+    ring wraps."""
     from repro_torch.serve import BatchServer, Request
     rng = np.random.default_rng(seed)
-    lens = serve_lengths(rng)
+    lens = serve_lengths(rng, lens_range)
     reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, int(n)),
-                    max_new_tokens=SERVE_NEW, extras=vision_extras(cfg, rng))
+                    max_new_tokens=SERVE_NEW,
+                    extras=request_extras(cfg, rng))
             for i, n in enumerate(lens)]
-    check(max(lens) + n_vis_of(cfg) + SERVE_NEW <= SERVE_CAP,
+    check(max(lens) + n_vis_of(cfg) + SERVE_NEW <= cap,
           "a merged prompt and its new tokens exceed the capacity")
-    srv = BatchServer(model, params, slots=SERVE_SLOTS,
-                      seq_capacity=SERVE_CAP, device="cuda")
+    srv = BatchServer(model, params, slots=SERVE_SLOTS, seq_capacity=cap,
+                      device="cuda")
     in_decode = {n: 0 for n in counters}
     decode = srv._decode
 
@@ -605,7 +668,7 @@ def phase_serve(torch, np, cfg, model, params, counters, seed: int,
               f"rid {r.rid}: token out of vocab")
     kinds, n_moe = layer_plan(cfg)
     moe_decode = n_moe * srv.decode_steps
-    want = {"flash_attention": kinds.count("attn") * SERVE_REQUESTS,
+    want = {"flash_attention": flash_per_prefill(cfg) * SERVE_REQUESTS,
             "moe_mlp": n_moe * SERVE_REQUESTS + moe_decode,
             "quantize": 0, "wkv6": kinds.count("rwkv") * SERVE_REQUESTS}
     want_decode = {n: 0 for n in counters}
@@ -620,14 +683,16 @@ def phase_serve(torch, np, cfg, model, params, counters, seed: int,
     r0 = min(done, key=lambda r: r.rid)
     lg, _ = model.prefill(srv.params, {
         "tokens": torch.as_tensor(r0.prompt, device="cuda")[None],
-        **on_card(torch, r0.extras)}, seq_capacity=SERVE_CAP)
+        **on_card(torch, r0.extras)}, seq_capacity=cap)
     check(int(lg[0, -1].float().argmax()) == r0.output[0],
           "first token differs from a standalone prefill")
     pre = np.array(srv.prefill_seconds) * 1e3
     dec = np.array(srv.decode_seconds) * 1e3
     tokens = sum(len(r.output) for r in done)
     vis = f" + {n_vis_of(cfg)} vision tokens each" if n_vis_of(cfg) else ""
-    print(f"serve {cfg.name} slots={SERVE_SLOTS} cap={SERVE_CAP} prompts "
+    if cfg.family == "audio":
+        vis = f" + {cfg.enc_seq} encoder frames each"
+    print(f"serve {cfg.name} slots={SERVE_SLOTS} cap={cap} prompts "
           f"{sorted(int(n) for n in lens)}{vis}: {tokens} tokens in "
           f"{wall:.3f} s = {tokens / wall:.1f} tokens/s; prefill "
           f"{pre.mean():.2f} ms/request "
@@ -643,33 +708,38 @@ def phase_serve(torch, np, cfg, model, params, counters, seed: int,
 def phase_timing(torch, ops, shape):
     """The flash kernel, its plain version and scaled_dot_product_attention
     (``enable_gqa`` where the kv heads are fewer) on one bf16 input of
-    ``shape`` (b, s, h, d and, for GQA, kvh), causal."""
+    ``shape`` (b, s, h, d and, for GQA, kvh; s_kv keys, s by default),
+    causal unless ``shape["causal"]`` is False."""
     import torch.nn.functional as F
     b, s, h, d = (shape[k] for k in "bshd")
-    kvh = shape.get("kvh", h)
+    kvh, s_kv = shape.get("kvh", h), shape.get("s_kv", s)
+    causal = shape.get("causal", True)
     gen = torch.Generator(device="cuda").manual_seed(2)
     q = torch.randn(b, s, h, d, generator=gen, device="cuda").bfloat16()
-    k, v = (torch.randn(b, s, kvh, d, generator=gen, device="cuda")
+    k, v = (torch.randn(b, s_kv, kvh, d, generator=gen, device="cuda")
             .bfloat16() for _ in range(2))
-    got = ops.flash_attention(q, k, v)
-    want = ops.flash_attention_plain(q, k, v).float()
+    got = ops.flash_attention(q, k, v, causal=causal)
+    want = ops.flash_attention_plain(q, k, v, causal=causal).float()
     diff = (got.float() - want).abs()
     err = float(diff.max())
     check(bool((diff <= TOL["bfloat16"] * (1 + want.abs())).all()),
           f"main-shape kernel error {err}")
-    ms = cuda_ms(lambda: ops.flash_attention(q, k, v))
-    plain_ms = cuda_ms(lambda: ops.flash_attention_plain(q, k, v))
+    ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal))
+    plain_ms = cuda_ms(lambda: ops.flash_attention_plain(q, k, v,
+                                                         causal=causal))
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     gqa = {"enable_gqa": True} if kvh != h else {}
-    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, **gqa)
+    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                         **gqa)
     check(bool((((lib.transpose(1, 2).float() - want).abs())
                 <= TOL["bfloat16"] * (1 + want.abs())).all()),
           "scaled_dot_product_attention computes another function")
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, **gqa))
-    flops, nbytes = ops.cost(q.shape, k.shape, q.dtype)
+        qt, kt, vt, is_causal=causal, **gqa))
+    flops, nbytes = ops.cost(q.shape, k.shape, q.dtype, causal)
     bound_ms, bound_by = bound_of(flops, nbytes, PEAK_BF16_FLOPS)
-    print(f"timing b={b} s={s} h={h} kvh={kvh} d={d} bf16: kernel "
+    print(f"timing b={b} s={s} s_kv={s_kv} h={h} kvh={kvh} d={d} bf16 "
+          f"causal={causal}: kernel "
           f"{ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
           f"({bound_by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB); "
@@ -737,7 +807,7 @@ def _scope_us(events, name: str) -> dict:
 
 
 def phase_profile(torch, np, cfg, model, params, seed: int, card: str,
-                  scopes=()):
+                  scopes=(), lens_range=(128, 2049), cap: int = SERVE_CAP):
     """Trace a serve run of PROFILE_REQUESTS requests and split its time
     into prefill and decode windows.  A window runs from the start of its
     step's span to the start of the next span, so it holds the step's host
@@ -748,13 +818,13 @@ def phase_profile(torch, np, cfg, model, params, seed: int, card: str,
     from torch.profiler import ProfilerActivity, profile, record_function
     from repro_torch.serve import BatchServer, Request
     rng = np.random.default_rng(seed + 1)
-    lens = rng.integers(128, 2049, PROFILE_REQUESTS)
+    lens = rng.integers(*lens_range, PROFILE_REQUESTS)
     reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, int(n)),
                     max_new_tokens=PROFILE_NEW,
-                    extras=vision_extras(cfg, rng))
+                    extras=request_extras(cfg, rng))
             for i, n in enumerate(lens)]
-    srv = BatchServer(model, params, slots=SERVE_SLOTS,
-                      seq_capacity=SERVE_CAP, device="cuda")
+    srv = BatchServer(model, params, slots=SERVE_SLOTS, seq_capacity=cap,
+                      device="cuda")
 
     def spanned(name, fn):
         def step(*a, **kw):
@@ -1608,8 +1678,11 @@ def analytic_flops(cfg, specs, b: int, s: int, train: bool) -> float:
     RWKV layer's time mix 4 n^2 b s h, a Mamba layer's recurrence
     4 d_inner d_state b s (h = decay h + drive and y = h . C, two flops
     each per state element); a train step 4x that (the forward, its
-    recomputation, and a backward of twice the forward)."""
+    recomputation, and a backward of twice the forward).  An
+    encoder-decoder: ``encdec_flops``."""
     import math
+    if cfg.family == "audio":
+        return encdec_flops(cfg, specs, b, s, train)
     layers = _matmul_params(cfg, specs["layers"])
     vp = specs["embed"].get("head", specs["embed"]["table"]).shape
     head = math.prod(vp)
@@ -1620,6 +1693,29 @@ def analytic_flops(cfg, specs, b: int, s: int, train: bool) -> float:
         * cfg.n_rwkv_heads
     total += kinds.count("attn") * 2 * b * s * s * cfg.n_heads * cfg.head_dim
     total += kinds.count("mamba") * 4 * cfg.d_inner * cfg.d_state * tokens
+    return total * (4 if train else 1)
+
+
+def encdec_flops(cfg, specs, b: int, s: int, train: bool) -> float:
+    """2 N tokens for each stack: the encoder's parameters over its b
+    enc_seq frames, the decoder's over its b s tokens, except the cross
+    attention's k and v projections, which read the b enc_seq frames; the
+    unembedding as ``analytic_flops``; attention 4 b s_q s_kv h d a pair
+    of q k^T and p v: non-causal over enc_seq^2 in the encoder and
+    s enc_seq in cross attention, causal (half of s^2) in the decoder's
+    self attention; a train step 4x that."""
+    import math
+    frames, tokens = b * cfg.enc_seq, b * s
+    dec = specs["dec_layers"]
+    cross_kv = sum(_matmul_params(cfg, dec["cross_attn"][w])
+                   for w in ("wk", "wv"))
+    head = math.prod(specs["embed"]["head"].shape)
+    total = (2 * _matmul_params(cfg, specs["enc_layers"]) * frames
+             + 2 * (_matmul_params(cfg, dec) - cross_kv) * tokens
+             + 2 * cross_kv * frames + 2 * head * (tokens if train else b))
+    hd = 4 * b * cfg.n_heads * cfg.head_dim
+    total += hd * (cfg.enc_layers * cfg.enc_seq ** 2
+                   + cfg.n_layers * (s * s / 2 + s * cfg.enc_seq))
     return total * (4 if train else 1)
 
 
@@ -1643,13 +1739,15 @@ def phase_fidelity_dryruns(torch, counters, seed: int, card: str) -> dict:
     olmoe-1b-7b's, rwkv6-7b's, deepseek-67b's, jamba-v0.1-52b's (all
     32 layers) and qwen2-vl-7b's (2048 - n_vis tokens and the vision
     prefix, as JAX's input specs give a VLM prefill) prefill at b=1
-    s=2048 and the train cell's step (stablelm-1.6b, 4 x 2048,
+    s=2048, whisper-small's at its longest served prompt with its 1500
+    frames, and the train cell's step (stablelm-1.6b, 4 x 2048,
     grad_compress).
     Each leaves every launch count and the card's allocated memory as
     they were, and reaches each kernel's custom op exactly once per layer
-    that runs it (the train step: once per parameter leaf, quantize
-    only); every prefill's ops all have a cost rule, and qwen2-vl-7b's
-    flops lie within 1% of the analytic count."""
+    that runs it (whisper: ``flash_per_prefill``; the train step: once
+    per parameter leaf, quantize only); every prefill's ops all have a
+    cost rule, and qwen2-vl-7b's and whisper-small's flops lie within 1%
+    of the analytic count."""
     from repro_torch.configs import get_config
     from repro_torch.core.fidelity import (DryRunBackend, StepProgram,
                                            TensorSpec, eval_shape, specs_of)
@@ -1657,24 +1755,30 @@ def phase_fidelity_dryruns(torch, counters, seed: int, card: str) -> dict:
     from repro_torch.serve.step import build_prefill_step
     from repro_torch.train import batch_to, build_train_step, init_train_state
     runs = []
-    for arch in (ARCH, MOE_ARCH, RWKV_ARCH, DENSE_67B, JAMBA_ARCH, VLM_ARCH):
+    for arch in (ARCH, MOE_ARCH, RWKV_ARCH, DENSE_67B, JAMBA_ARCH, VLM_ARCH,
+                 WHISPER_ARCH):
         cfg = get_config(arch)
         n_vis = n_vis_of(cfg)
-        tokens = {"tokens": TensorSpec((FIDELITY_B, FIDELITY_S - n_vis),
+        s = WHISPER_PROMPT if cfg.family == "audio" else FIDELITY_S
+        tokens = {"tokens": TensorSpec((FIDELITY_B, s - n_vis),
                                        torch.int64)}
         if n_vis:
             tokens["vision_embeds"] = TensorSpec(
                 (FIDELITY_B, n_vis, cfg.d_model), torch.bfloat16)
+        if cfg.family == "audio":
+            tokens["enc_embeds"] = TensorSpec(
+                (FIDELITY_B, cfg.enc_seq, cfg.d_model), torch.bfloat16)
         model = build_model(cfg)
         specs = eval_shape(lambda: model.load(model.init(seed, "cpu"), "cpu"))
         kinds, n_moe = layer_plan(cfg)
-        want = {op: n for op, n in (("flash_attention", kinds.count("attn")),
+        want = {op: n for op, n in (("flash_attention",
+                                     flash_per_prefill(cfg)),
                                     ("expert_mlp", n_moe),
                                     ("wkv6", kinds.count("rwkv"))) if n}
-        runs.append((f"{arch} prefill b={FIDELITY_B} s={FIDELITY_S}", cfg,
+        runs.append((f"{arch} prefill b={FIDELITY_B} s={s}", cfg,
                      StepProgram(f"{arch} prefill", build_prefill_step(model),
                                  (specs, tokens), device="cuda"),
-                     want, FIDELITY_B, FIDELITY_S, False))
+                     want, FIDELITY_B, s, False))
     cfg = get_config(ARCH)
     model, opts, _, _, pipe = _train_setup(torch, cfg, seed, state=False)
     state = eval_shape(lambda: init_train_state(model, seed, opts, "cpu"))
@@ -1705,7 +1809,7 @@ def phase_fidelity_dryruns(torch, counters, seed: int, card: str) -> dict:
             check(not rep.detail["unknown_ops"],
                   f"dry run {label}: ops with no cost rule "
                   f"{rep.detail['unknown_ops']}")
-        if cfg.family == "vlm":
+        if cfg.family in ("vlm", "audio"):
             check(abs(rep.flops / analytic - 1) <= 0.01,
                   f"dry run {label}: {rep.flops} flops, analytic {analytic}")
         k_flops = sum(f for n, f, _ in rep.detail["ops"]
@@ -1937,6 +2041,12 @@ def main() -> int:
     vlm_launches, t_vlm = phase_qwen2_vl(torch, np, counters, args.seed,
                                          card)
 
+    # 19. whisper-small served at full width, everything before freed
+    gc.collect()
+    torch.cuda.empty_cache()
+    whisper_launches, t_whisper = phase_whisper(torch, np, counters,
+                                                args.seed, card)
+
     by_path = {ARCH: dense_launches, MOE_ARCH: moe_launches,
                f"{ARCH} train": train_launches,
                f"{MOE_ARCH} train ({MOE_TRAIN_LAYERS} layers)":
@@ -1945,7 +2055,7 @@ def main() -> int:
                f"{RWKV_ARCH} train ({RWKV_TRAIN_LAYERS} layers)":
                    rwkv_train_launches,
                f"{JAMBA_ARCH} ({jcfg.n_layers} layers)": jamba_launches,
-               VLM_ARCH: vlm_launches}
+               VLM_ARCH: vlm_launches, WHISPER_ARCH: whisper_launches}
     rows = [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -1966,7 +2076,15 @@ def main() -> int:
          "qwen2_vl": {**t_vlm,
                       "shape": "b={b} s={s} h={h} kvh={kvh} d={d} bf16 "
                                "(qwen2-vl-7b prefill)"
-                               .format(**VLM_ATTN_SHAPE)}},
+                               .format(**VLM_ATTN_SHAPE)},
+         "whisper": {
+             part: {**t_whisper[part],
+                    "shape": "b={b} s={s} s_kv={kv} h={h} d={d} bf16 not "
+                             "causal (whisper-small {part})".format(
+                                 kv=shape.get("s_kv", shape["s"]),
+                                 part=part, **shape)}
+             for part, shape in (("encoder", WHISPER_ENC_SHAPE),
+                                 ("cross", WHISPER_CROSS_SHAPE))}},
         {"name": "moe_mlp", "route": "cuda",
          "source": "src/repro_torch/kernels/moe_mlp/csrc/moe_mlp.cu",
          "replaces": "src/repro/kernels/moe_mlp/kernel.py:31",
@@ -2084,6 +2202,46 @@ def phase_qwen2_vl(torch, np, counters, seed: int, card: str):
     t_flash["prefix"] = phase_prefix_timing(torch, ops, cfg.n_vis, card)
     phase_profile(torch, np, cfg, model, params, seed, card)
     return launches, t_flash
+
+
+def phase_whisper(torch, np, counters, seed: int, card: str):
+    """Phase 19: whisper-small at full width and depth (12 encoder and 12
+    decoder layers) in bf16; phase 4 on a WHISPER_PROMPT-token prompt and
+    1500 frames (the plain flash in the kernel's place: encoder, self and
+    cross attention), phase 5 at its 448-token capacity with every
+    request's frames drawn from the seed (exactly 36 flash launches a
+    request, none in a decode step), flash against SDPA at the encoder's
+    shape (not causal, 1500 x 1500) and at cross attention's (not
+    causal, WHISPER_PROMPT x 1500), and phase 7.  Returns (launches of
+    the serve run, flash times at the two shapes)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import build_model, layers
+    cfg = get_config(WHISPER_ARCH)
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.load(model.init(seed, "cuda"), "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"model: {WHISPER_ARCH} drawn and cast to bf16 in "
+          f"{time.perf_counter() - t0:.1f} s, {n_params / 1e6:.2f} M params "
+          f"(ArchConfig.param_counts: "
+          f"{cfg.param_counts()['total'] / 1e6:.2f} M: it leaves out cross "
+          f"attention, the learned positions and the norms), peak device "
+          f"memory of the init "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, bf16 params "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB [{card}]")
+    phase_model(torch, np, cfg, model, params, seed,
+                [(layers, "flash_attention", ops.flash_attention_plain)],
+                WHISPER_LOGIT_RTOL, prompt_len=WHISPER_PROMPT)
+    launches, _ = phase_serve(torch, np, cfg, model, params, counters, seed,
+                              card, WHISPER_LENS, WHISPER_CAP)
+    times = {"encoder": phase_timing(torch, ops, WHISPER_ENC_SHAPE),
+             "cross": phase_timing(torch, ops, WHISPER_CROSS_SHAPE)}
+    phase_profile(torch, np, cfg, model, params, seed, card,
+                  lens_range=WHISPER_LENS, cap=WHISPER_CAP)
+    return launches, times
 
 
 def phase_prefix_timing(torch, ops, prefix: int, card: str) -> dict:

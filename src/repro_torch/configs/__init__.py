@@ -1,9 +1,6 @@
-"""Architecture registry of the port (``--arch <id>`` resolution).
-
-Lists only the archs the port can run.  Every other arch of the JAX
-package's registry raises ``KeyError`` naming the ROADMAP item that
-brings it.
-"""
+"""Architecture registry of the port (``--arch <id>`` resolution): every
+arch of the JAX package's registry, each config a copy of its file
+there."""
 
 from __future__ import annotations
 
@@ -21,23 +18,14 @@ from repro_torch.configs.olmoe_1b_7b import CONFIG as _olmoe
 from repro_torch.configs.qwen2_vl_7b import CONFIG as _qwen2_vl
 from repro_torch.configs.rwkv6_7b import CONFIG as _rwkv
 from repro_torch.configs.stablelm_1_6b import CONFIG as _stablelm
+from repro_torch.configs.whisper_small import CONFIG as _whisper
 
 REGISTRY: Dict[str, ArchConfig] = {
     c.name: c for c in (_stablelm, _deepseek, _minicpm, _nemotron, _olmoe,
-                        _mixtral, _rwkv, _jamba, _qwen2_vl)}
-
-# what a later slice brings, by ROADMAP.md Queue 1 item
-ROADMAP: Dict[str, str] = {
-    "audio": "ROADMAP.md Queue 1 item 6b (audio: whisper-small and "
-             "models/encdec.py)",
-}
-# archs of the JAX registry the port does not run yet
-PENDING: Dict[str, str] = {"whisper-small": ROADMAP["audio"]}
+                        _mixtral, _rwkv, _jamba, _qwen2_vl, _whisper)}
 
 
 def get_config(name: str) -> ArchConfig:
     if name in REGISTRY:
         return REGISTRY[name]
-    if name in PENDING:
-        raise KeyError(f"arch {name!r} is not ported yet: {PENDING[name]}")
     raise KeyError(f"unknown arch {name!r}; one of {sorted(REGISTRY)}")

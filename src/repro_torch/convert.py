@@ -4,8 +4,8 @@
 ``repro.models.api.Model.init`` returns, with its leaves turned into
 numpy arrays (``jax.tree.map(np.asarray, params)``), and returns the
 port's parameter tree: the same key paths and the same stacked layer
-axis (a hybrid arch's ``layers``: a tuple of per-position trees), leaf
-for leaf.  ``train_state_from_jax(state, cfg, opts, device)``
+axis (a hybrid arch's ``layers``: a tuple of per-position trees; an
+encoder-decoder's ``enc_layers`` and ``dec_layers``), leaf for leaf.  ``train_state_from_jax(state, cfg, opts, device)``
 does the same for a train state of ``repro.train.step``.  Neither
 imports JAX: the caller does the numpy conversion.
 """
@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import transformer as tf
+from repro_torch.models.api import init_fn
 from repro_torch.models.common import leaves
 from repro_torch.train.step import default_options_for, moment_dtype
 
@@ -51,7 +51,7 @@ def _convert(tree: Any, want: Any, path: str, device, dtype) -> Any:
 def params_from_jax(tree: Dict, cfg, device: DeviceLike = None,
                     dtype: torch.dtype = torch.float32) -> Dict:
     """Convert a JAX parameter tree (numpy leaves) for ``cfg``."""
-    want = tf.init_lm(None, cfg)          # shapes only, on the meta device
+    want = init_fn(cfg)(None, cfg)        # shapes only, on the meta device
     return _convert(tree, want, "", resolve_device(device), dtype)
 
 

@@ -52,6 +52,10 @@ _PER_ELEMENT = {
     aten._softmax: 5, aten._log_softmax: 5, aten._softmax_backward_data: 4,
     aten._log_softmax_backward_data: 4, aten.sigmoid_backward: 3,
     aten.tanh_backward: 3,
+    # the one-HLO-op rules of the module docstring: a scatter's output is
+    # its operand's shape, and a cumsum's its input's
+    aten.scatter: 1, aten.scatter_add: 1, aten.masked_fill: 1,
+    aten.masked_fill_: 1, aten.cumsum: 1,
 }
 # ops that move data or allocate and compute nothing
 _NO_FLOPS = {
@@ -62,7 +66,8 @@ _NO_FLOPS = {
     aten.index, aten.index_select, aten.gather, aten.embedding,
     aten.index_put, aten.index_put_, aten._index_put_impl_,
     aten.constant_pad_nd, aten.repeat, aten.repeat_interleave, aten.sort,
-    aten.topk, aten.argsort, aten.lift_fresh_copy,
+    aten.topk, aten.argsort, aten.lift_fresh_copy, aten.select_backward,
+    aten.slice_backward, aten.flip,
 }
 # ops that allocate without writing, or only alias
 _FREE = {aten.empty, aten.empty_like, aten.empty_strided, aten.new_empty,
@@ -103,6 +108,7 @@ _DOTS = {aten.mm, aten.bmm, aten.addmm, aten.baddbmm, aten.mv, aten.addmv,
 # ops with a rule of their own (see the module docstring)
 _DIVIDES = {aten.floor_divide}
 _SEARCHES = {aten.searchsorted}
+_TRIL = {aten.tril}
 
 
 def known(func) -> bool:
@@ -114,7 +120,7 @@ def known(func) -> bool:
     return (func.namespace == "repro_torch" or func.is_view
             or packet in _DOTS or packet in _PER_ELEMENT
             or packet in _NO_FLOPS or packet in _FREE
-            or packet in _DIVIDES or packet in _SEARCHES
+            or packet in _DIVIDES or packet in _SEARCHES or packet in _TRIL
             or torch.Tag.reduction in func.tags
             or torch.Tag.pointwise in func.tags)
 
@@ -146,6 +152,8 @@ def op_cost(func, args, kwargs, out) -> Tuple[float, float]:
         flops = 2.0 * out_elems
     elif packet in _SEARCHES:
         flops = float(_search_flops(args, out_elems))
+    elif packet in _TRIL:
+        flops = float(math.prod(outs[0].shape[-2:])) + out_elems
     elif torch.Tag.reduction in func.tags:
         flops = float(args[0].numel())
         if packet is aten.mean:

@@ -40,12 +40,16 @@ def main(argv=None) -> None:
     reqs = []
     for i in range(args.requests):
         # the JAX launcher's draws, in its order: the length, a VLM's
-        # vision embeddings, then the prompt
+        # vision embeddings or an encoder-decoder's frame embeddings, then
+        # the prompt
         plen = int(rng.integers(2, 12))
         extras = {}
         if cfg.family == "vlm":
             extras["vision_embeds"] = rng.standard_normal(
                 (cfg.n_vis, cfg.d_model)).astype(np.float32) * 0.1
+        if cfg.family == "audio":
+            extras["enc_embeds"] = rng.standard_normal(
+                (cfg.enc_seq, cfg.d_model)).astype(np.float32) * 0.1
         reqs.append(Request(rid=i,
                             prompt=rng.integers(0, cfg.vocab_size, plen),
                             max_new_tokens=args.max_new, extras=extras))

@@ -108,6 +108,13 @@ def unflatten(tree: Tree, values) -> Tree:
     return map_leaves(lambda _: next(it), tree)
 
 
+def zeros(specs: Tree, device: torch.device) -> Tree:
+    """A tree of zero tensors on ``device`` shaped like a tree of
+    ``TensorSpec`` (a zero cache from its spec)."""
+    return map_leaves(lambda s: torch.zeros(s.shape, dtype=s.dtype,
+                                            device=device), specs)
+
+
 def cast(tree: Tree, dtype: torch.dtype,
          device: Optional[torch.device] = None) -> Tree:
     """Cast float leaves to ``dtype`` (and move them to ``device``).

@@ -1,7 +1,8 @@
-"""Layer library of the port, dense subset: norms, partial RoPE and
-M-RoPE, GQA attention (train mode in plain PyTorch under autograd,
-prefill through the flash kernel on the GPU, KV-cache decode), MLPs,
-embeddings and the cross-entropy loss.
+"""Layer library of the port: norms, partial RoPE and M-RoPE, GQA
+attention (train mode in plain PyTorch under autograd, prefill through
+the flash kernel on the GPU, KV-cache decode), cross attention over
+given keys and values, MLPs, embeddings with learned positions and the
+cross-entropy loss.
 
 Each function mirrors the one of the same name in
 ``repro.models.layers`` and keeps its layouts: activations
@@ -17,7 +18,6 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs import ROADMAP
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.common import param
 
@@ -151,26 +151,33 @@ def qkv_project(p: Dict, x: torch.Tensor, cfg, positions: torch.Tensor):
     return q, _repeat_kv(k, cfg.n_heads), _repeat_kv(v, cfg.n_heads)
 
 
-def naive_causal_attention(q, k, v, q_pos, kv_pos, window: int = 0):
-    """Reference attention.  q/k/v: (b, s, h, hd); positions (b, s)."""
-    hd = q.shape[-1]
-    scores = torch.einsum("bqhk,bshk->bhqs", q, k).float()
-    scores = scores / math.sqrt(hd)
+def _mask(scores, q_pos, kv_pos, window: int):
+    """Causal by position (and within ``window``): masked scores."""
     mask = kv_pos[:, None, None, :] <= q_pos[:, None, :, None]
     if window:
         mask &= kv_pos[:, None, None, :] > (q_pos[:, None, :, None] - window)
-    scores = torch.where(mask, scores, NEG_INF)
+    return torch.where(mask, scores, NEG_INF)
+
+
+def naive_causal_attention(q, k, v, q_pos, kv_pos, window: int = 0,
+                           cross: bool = False):
+    """Reference attention.  q/k/v: (b, s, h, hd); positions (b, s);
+    ``cross`` attends every key (no mask)."""
+    hd = q.shape[-1]
+    scores = torch.einsum("bqhk,bshk->bhqs", q, k).float()
+    scores = scores / math.sqrt(hd)
+    if not cross:
+        scores = _mask(scores, q_pos, kv_pos, window)
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum("bhqs,bshk->bqhk", probs.to(q.dtype), v)
 
 
-def _chunk_step(acc, m, l, qf, kci, vci, pci, q_pos, window: int):
+def _chunk_step(acc, m, l, qf, kci, vci, pci, q_pos, window: int,
+                cross: bool):
     """One KV chunk of the online softmax: (acc, m, l) -> updated."""
     s = torch.einsum("bqhk,bshk->bhqs", qf, kci).float()
-    mask = pci[:, None, None, :] <= q_pos[:, None, :, None]
-    if window:
-        mask &= pci[:, None, None, :] > (q_pos[:, None, :, None] - window)
-    s = torch.where(mask, s, NEG_INF)
+    if not cross:
+        s = _mask(s, q_pos, pci, window)
     m_new = torch.maximum(m, s.amax(dim=-1))
     alpha = torch.exp(m - m_new)
     p = torch.exp(s - m_new[..., None])
@@ -181,9 +188,10 @@ def _chunk_step(acc, m, l, qf, kci, vci, pci, q_pos, window: int):
 
 
 def blockwise_attention(q, k, v, q_pos, kv_pos, window: int = 0,
-                        chunk: int = 1024):
+                        chunk: int = 1024, cross: bool = False):
     """Online-softmax attention over KV chunks, in plain PyTorch.
-    q: (b, sq, h, hd); k/v: (b, skv, h, hd).
+    q: (b, sq, h, hd); k/v: (b, skv, h, hd); ``cross`` as in
+    ``naive_causal_attention``.
 
     Each chunk step is checkpointed, as ``jax.checkpoint(body)`` in the
     JAX function: the backward pass recomputes a chunk's f32 scores and
@@ -200,14 +208,15 @@ def blockwise_attention(q, k, v, q_pos, kv_pos, window: int = 0,
         acc, m, l = checkpoint(
             _chunk_step, acc, m, l, qf, k[:, c0:c0 + chunk],
             v[:, c0:c0 + chunk], kv_pos[:, c0:c0 + chunk], q_pos, window,
-            use_reentrant=False)
+            cross, use_reentrant=False)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.transpose(1, 2).to(q.dtype)              # (b, sq, h, hd)
 
 
 def attention_train(p: Dict, x: torch.Tensor, cfg, positions: torch.Tensor,
                     chunk: int = 2048, return_kv: bool = False,
-                    mode: str = "prefill", n_vis: int = 0):
+                    mode: str = "prefill", n_vis: int = 0,
+                    kv: Optional[Tuple] = None):
     """Training/prefill attention with output projection.
 
     ``mode="train"`` is the JAX function on every device: the naive
@@ -223,28 +232,44 @@ def attention_train(p: Dict, x: torch.Tensor, cfg, positions: torch.Tensor,
     a key is visible where its index is at most the query's or below
     ``n_vis`` (the kernel's ``prefix``).  ``return_kv`` also returns the
     pre-repeat (b, s, kvh, hd) k and v.
+
+    ``kv = (k, v, kv_pos)``, keys and values computed elsewhere (the
+    encoder's own, or the encoder output's for the decoder's cross
+    attention), is attended with no mask (JAX's ``cross``): the kernel
+    runs with ``causal=False`` over their ``s_kv`` keys; ``positions``
+    then only turn q.  Unlike the JAX function's, these k and v are not
+    repeated to the query heads: (b, s_kv, kvh, hd).
     """
     if mode not in ("train", "prefill"):
         raise ValueError(f"attention_train has no mode {mode!r}")
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
     if cfg.qk_norm:
         q = _qk_norm(q, p["q_norm"], cfg.norm_eps)
-        k = _qk_norm(k, p["k_norm"], cfg.norm_eps)
     q = apply_rope(cfg, q, positions)
-    k = apply_rope(cfg, k, positions)
+    q_pos = positions if positions.dim() == 2 else positions[..., 0]
+    if kv is None:
+        k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+        v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+        if cfg.qk_norm:
+            k = _qk_norm(k, p["k_norm"], cfg.norm_eps)
+        k = apply_rope(cfg, k, positions)
+        kv_pos = q_pos
+    else:
+        k, v, kv_pos = kv
+    cross = kv is not None
     if mode == "train" or x.device.type == "cpu":
-        pos = positions if positions.dim() == 2 else positions[..., 0]
         kr, vr = _repeat_kv(k, cfg.n_heads), _repeat_kv(v, cfg.n_heads)
         if kr.shape[1] > chunk:
-            out = blockwise_attention(q, kr, vr, pos, pos,
-                                      window=cfg.sliding_window, chunk=chunk)
+            out = blockwise_attention(q, kr, vr, q_pos, kv_pos,
+                                      window=cfg.sliding_window, chunk=chunk,
+                                      cross=cross)
         else:
-            out = naive_causal_attention(q, kr, vr, pos, pos,
-                                         window=cfg.sliding_window)
+            out = naive_causal_attention(q, kr, vr, q_pos, kv_pos,
+                                         window=cfg.sliding_window,
+                                         cross=cross)
     else:
-        out = flash_attention(q, k, v, causal=True, window=cfg.sliding_window,
+        out = flash_attention(q, k, v, causal=not cross,
+                              window=0 if cross else cfg.sliding_window,
                               prefix=n_vis)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     if return_kv:
@@ -360,9 +385,12 @@ def _silu(h: torch.Tensor) -> torch.Tensor:
 
 
 def _gelu_tanh(h: torch.Tensor) -> torch.Tensor:
-    """jax.nn.gelu's default (approximate=True) tanh form."""
+    """jax.nn.gelu's default (approximate=True) tanh form.  Both
+    constants are rounded to the dtype first, as JAX's are (a Python
+    float times a bf16 tensor multiplies by the unrounded value)."""
     c = torch.tensor(math.sqrt(2 / math.pi), dtype=h.dtype)
-    return h * (0.5 * (1.0 + torch.tanh(c * (h + 0.044715 * (h * h * h)))))
+    a = torch.tensor(0.044715, dtype=h.dtype)
+    return h * (0.5 * (1.0 + torch.tanh(c * (h + a * (h * h * h)))))
 
 
 # ---------------------------------------------------------------------------
@@ -375,19 +403,28 @@ def padded_vocab(cfg) -> int:
 
 
 def init_embedding(gen: torch.Generator, cfg) -> Dict:
-    if cfg.pos_scheme == "learned":
-        raise NotImplementedError(f"learned positions: {ROADMAP['audio']}")
+    """The token table, the head unless tied, and with learned positions
+    (whisper's decoder) a ``pos_table`` of 8192 rows, or ``enc_seq`` if
+    more, as in JAX."""
     vp = padded_vocab(cfg)
     p = {"table": param(gen, (vp, cfg.d_model), scale=1.0)}
     if not cfg.tie_embeddings:
         p["head"] = param(gen, (cfg.d_model, vp))
+    if cfg.pos_scheme == "learned":
+        p["pos_table"] = param(gen, (max(8192, cfg.enc_seq), cfg.d_model),
+                               scale=0.02)
     return p
 
 
-def embed_tokens(p: Dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
+def embed_tokens(p: Dict, tokens: torch.Tensor, cfg,
+                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token embeddings, plus ``pos_table[positions]`` (b, s) with learned
+    positions."""
     x = p["table"][tokens]
     if cfg.tie_embeddings:
         x = x * math.sqrt(cfg.d_model)    # minicpm-style embedding scale
+    if cfg.pos_scheme == "learned" and positions is not None:
+        x = x + p["pos_table"][positions]
     return x
 
 

@@ -24,8 +24,7 @@ Three modes:
              states)
   decode  -> one-token step that updates the stacked cache IN PLACE
 
-Other families (audio) raise ``NotImplementedError`` naming their
-ROADMAP item.
+The audio family (whisper's encoder-decoder) is ``models/encdec.py``.
 """
 
 from __future__ import annotations
@@ -36,12 +35,11 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs import ROADMAP
 from repro_torch.models import layers as ll
 from repro_torch.models import mamba as mm
 from repro_torch.models import moe as me
 from repro_torch.models import rwkv as rw
-from repro_torch.models.common import TensorSpec, cast, map_leaves, stack_inits
+from repro_torch.models.common import TensorSpec, cast, stack_inits, zeros
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 MODES = ("train", "prefill", "decode")
@@ -49,9 +47,8 @@ MODES = ("train", "prefill", "decode")
 
 def check_family(cfg) -> None:
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: "
-            f"{ROADMAP.get(cfg.family, 'ROADMAP.md Queue 1')}")
+        raise ValueError(f"family {cfg.family!r} is not a decoder LM "
+                         f"family; one of {FAMILIES}")
 
 
 # ---------------------------------------------------------------------------
@@ -165,9 +162,7 @@ def cache_spec(cfg, batch: int, seq_len: int,
 
 def init_cache(cfg, batch: int, seq_len: int, device: torch.device,
                dtype: torch.dtype = torch.bfloat16):
-    return map_leaves(lambda s: torch.zeros(s.shape, dtype=s.dtype,
-                                            device=device),
-                      cache_spec(cfg, batch, seq_len, dtype))
+    return zeros(cache_spec(cfg, batch, seq_len, dtype), device)
 
 
 def make_positions(cfg, b: int, s: int, device: torch.device,

@@ -37,7 +37,8 @@ class Request:
     max_new_tokens: int = 16
     eos_token: Optional[int] = None
     # further prefill inputs, each without its batch axis (a VLM's
-    # "vision_embeds" (n_vis, d_model)):
+    # "vision_embeds" (n_vis, d_model), an encoder-decoder's "enc_embeds"
+    # (enc_seq, d_model)):
     extras: Dict[str, Any] = field(default_factory=dict)
     # filled by the server:
     output: List[int] = field(default_factory=list)

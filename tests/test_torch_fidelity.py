@@ -7,8 +7,9 @@ Tolerances, each measured here:
   the dry run's flops equal JAX's within 1e-6 (its dots, tanh and sum
   count the same; the HLO holds 16 more flops of scalar bookkeeping).
 * The quickstart's smoke olmoe-1b-7b train step: within 2% (measured
-  0.9893: the dots agree within 0.04%; XLA's autodiff spells some
-  pointwise work with other ops than PyTorch's).  Bytes are reported,
+  0.98946 with a rule for every op it dispatches: the dots agree within
+  0.04%; XLA's autodiff spells some pointwise work with other ops than
+  PyTorch's).  Bytes are reported,
   not gated: eager PyTorch fuses nothing (1.5x JAX's, measured).
 * ``DesimBackend``: on the same flops and bytes as JAX's dry run, the
   predicted step on ``v5e_pod()`` equals JAX's to the simulator's 1 ns
@@ -189,6 +190,7 @@ def quick_train():
 
 def test_quickstart_train_step_flops_match_jax(quick_train):
     _, rep, _, want = quick_train
+    assert rep.detail["unknown_ops"] == {}
     ratio = rep.flops / want.flops
     print(f"quickstart train step: flops torch {rep.flops:.0f} JAX "
           f"{want.flops:.0f} ratio {ratio:.4f}; bytes torch "
@@ -233,13 +235,14 @@ def test_desim_runs_the_dry_run_itself_and_needs_a_replay():
 
 # --- the kernel path on fake CUDA tensors ----------------------------------
 
-def _attention_plain(q, k, v, pos, window):
+def _attention_plain(q, k, v, q_pos, kv_pos, window, cross):
     """What the CPU path of ``layers.attention_train`` runs where the CUDA
-    path calls the flash kernel (s within one chunk)."""
+    path calls the flash kernel (s within one chunk); ``cross`` where it
+    calls it not causal."""
     h = q.shape[2]
     return layers.naive_causal_attention(
-        q, layers._repeat_kv(k, h), layers._repeat_kv(v, h), pos, pos,
-        window=window)
+        q, layers._repeat_kv(k, h), layers._repeat_kv(v, h), q_pos, kv_pos,
+        window=window, cross=cross)
 
 
 def _plain_flops(name, args):
@@ -250,8 +253,9 @@ def _plain_flops(name, args):
             tf.StepProgram(name, fn, specs, device="cpu")).flops
     if name == "flash_attention":
         q, k, v, causal, window, prefix = args
-        pos = TensorSpec(q.shape[:2], torch.int64)
-        return dry(lambda *a: _attention_plain(*a, window), q, k, v, pos)
+        q_pos, kv_pos = (TensorSpec(t.shape[:2], torch.int64) for t in (q, k))
+        return dry(lambda *a: _attention_plain(*a, window, not causal),
+                   q, k, v, q_pos, kv_pos)
     if name == "expert_mlp":
         return dry(moe_ops.expert_mlp_plain, *args)
     if name == "wkv6":
@@ -264,7 +268,13 @@ def _plain_flops(name, args):
 def _prefill_batch(cfg, b: int, s: int):
     """The specs of a prefill batch of ``s`` positions, as JAX's
     ``Model.input_specs`` gives them: a VLM's tokens are ``s - n_vis``
-    and its ``vision_embeds`` (b, n_vis, d_model) bf16."""
+    and its ``vision_embeds`` (b, n_vis, d_model) bf16; an
+    encoder-decoder's ``enc_embeds`` (b, enc_seq, d_model) bf16 go
+    beside its ``s`` tokens."""
+    if cfg.family == "audio":
+        return {"tokens": TensorSpec((b, s), torch.int64),
+                "enc_embeds": TensorSpec((b, cfg.enc_seq, cfg.d_model),
+                                         torch.bfloat16)}
     if cfg.family != "vlm":
         return {"tokens": TensorSpec((b, s), torch.int64)}
     return {"tokens": TensorSpec((b, s - cfg.n_vis), torch.int64),
@@ -276,7 +286,8 @@ def _prefill_batch(cfg, b: int, s: int):
     ("stablelm-1.6b", {"flash_attention": 4}),
     ("olmoe-1b-7b", {"flash_attention": 4, "expert_mlp": 4}),
     ("rwkv6-7b", {"wkv6": 4}),
-    ("qwen2-vl-7b", {"flash_attention": 4})])
+    ("qwen2-vl-7b", {"flash_attention": 4}),
+    ("whisper-small", {"flash_attention": 2 + 2 * 4})])
 def test_prefill_on_fake_cuda_counts_the_kernel_ops(arch, want, monkeypatch):
     """A smoke prefill on fake CUDA tensors, on this host with no card:
     each kernel is one custom op, once per layer, at its ``cost``; no
@@ -342,6 +353,55 @@ def test_moe_dispatch_ops_have_cost_rules():
         names = {n for n, _, _ in rep.detail["ops"]}
         assert {"aten.searchsorted.Tensor",
                 "aten.floor_divide.default"} <= names
+
+
+def test_train_step_ops_have_cost_rules():
+    """The ops a train step's backward and the RWKV plain scan dispatch,
+    each at ``hlo_cost``'s count: ``scatter`` and ``scatter_add`` 1 flop
+    an operand element, ``masked_fill_`` 1 an output element (a select),
+    ``cumsum`` 1 an input element (a reduce-window), ``tril`` the compare
+    of its (n, m) matrix and a select an element; ``select_backward``,
+    ``slice_backward`` and ``flip`` move data only."""
+    from repro_torch.core import op_cost
+    x = torch.randn(6, 5)
+    idx = torch.randint(0, 6, (3, 5))
+    with op_cost.CostMode() as mode:
+        torch.zeros(6, 5).scatter_add(0, idx, torch.ones(3, 5))
+        torch.zeros(6, 5).scatter(0, idx, torch.ones(3, 5))
+        x.clone().masked_fill_(x > 0, 0.0)
+        torch.cumsum(x, dim=0)
+        torch.tril(torch.ones(4, 4, dtype=torch.bool), -1)
+        torch.flip(x, (0,))
+        torch.ops.aten.select_backward(torch.ones(5), (6, 5), 0, 2)
+        torch.ops.aten.slice_backward(torch.ones(2, 5), (6, 5), 0, 1, 3, 1)
+    flops = {n: f for n, f, _ in mode.ops}
+    assert not mode.unknown
+    assert flops["aten.scatter_add.default"] == 30
+    assert flops["aten.scatter.src"] == 30
+    assert flops["aten.masked_fill_.Scalar"] == 30
+    assert flops["aten.cumsum.default"] == 30
+    assert flops["aten.tril.default"] == 16 + 16
+    for n in ("aten.flip.default", "aten.select_backward.default",
+              "aten.slice_backward.default"):
+        assert flops[n] == 0
+
+
+@pytest.mark.parametrize("arch", sorted(REGISTRY))
+def test_every_arch_train_step_dry_run_has_a_cost_rule_for_every_op(arch):
+    """The smoke train step of every arch (the CPU path: autograd on fake
+    CUDA tensors needs a card), AdamW and its backward included."""
+    cfg = smoke(get_config(arch))
+    model = build_model(cfg)
+    opts = TrainOptions(**QUICK_OPTS)
+    state = init_train_state(model, 0, opts, "cpu")
+    pipe = SyntheticPipeline(cfg, ShapeConfig("quick", kind="train",
+                                              **QUICK_SHAPE))
+    rep = tf.DryRunBackend().run(tf.StepProgram(
+        f"{arch} train", build_train_step(model, opts),
+        (specs_of(state), specs_of(batch_to(pipe.batch(0), "cpu"))),
+        device="cpu"))
+    assert rep.detail["unknown_ops"] == {}
+    assert rep.flops > 0
 
 
 @pytest.mark.parametrize("arch", sorted(REGISTRY))

@@ -155,6 +155,23 @@ def test_flash_attention_kernel_tile_edges(card, s, s_kv, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [1500, 416, 129, 1])
+def test_flash_attention_kernel_whisper_not_causal(card, s, dtype):
+    """whisper-small's launches: 12 heads of 64, not causal over its 1500
+    encoder frames, from the encoder's 1500 queries and from cross
+    attention's prompt rows (1500 = 11 x 128 + 92 ends inside a tile)."""
+    gen = torch.Generator(device=card).manual_seed(s)
+    q = torch.randn(1, s, 12, 64, generator=gen, device=card).to(dtype)
+    k, v = (torch.randn(1, 1500, 12, 64, generator=gen, device=card)
+            .to(dtype) for _ in range(2))
+    got = ops.flash_attention(q, k, v, causal=False)
+    want = ops.flash_attention_plain(q, k, v, causal=False)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_window_past_s_kv(card, dtype):
     """Causal with a window and s > s_kv.  Through the wrapper: s=160,
     s_kv=130, window=32, where every row sees a key, against the plain
@@ -549,6 +566,66 @@ def test_qwen2_vl_prefill_through_the_kernel(card, monkeypatch):
     assert bool(torch.isfinite(got).all())
     assert float((got - want).abs().max()) <= 2e-2 * float(want.abs().max())
     assert int(got.argmax()) == int(want.argmax())
+
+
+@pytest.mark.gpu
+def test_smoke_whisper_serves_through_the_kernel(card):
+    """smoke(whisper-small) in bf16: a prefill on the card launches the
+    flash kernel once per encoder layer and twice per decoder layer (self
+    and cross attention), a decode step never; the card's prefill and
+    decode logits lie within 2e-2 of the largest of the CPU's (the plain
+    path; the two sum in other orders).  The server on the card serves
+    requests with frames, 10 launches a request, and each request's first
+    token is the CPU prefill's argmax wherever the CPU's top-2 gap
+    exceeds twice that tolerance (each logit may move by it)."""
+    import numpy as np
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.models import build_model
+    from repro_torch.serve import BatchServer, Request
+    cfg = smoke(get_config("whisper-small"))
+    model = build_model(cfg)
+    params = model.init(0, "cpu")
+    gen = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, 256, (2, 20), generator=gen),
+             "enc_embeds": 0.1 * torch.randn(2, cfg.enc_seq, cfg.d_model,
+                                             generator=gen)}
+
+    def run(dev):
+        p = model.load(params, dev)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        n0 = ops.flash_attention.launches
+        logits, cache = model.prefill(p, b, seq_capacity=32)
+        launched = ops.flash_attention.launches - n0
+        step, _ = model.decode(p, {"tokens": b["tokens"][:, :1]}, cache, 20)
+        assert ops.flash_attention.launches - n0 == launched
+        return [logits.float().cpu(), step.float().cpu()], launched
+
+    got, launched_card = run(card)
+    assert launched_card == cfg.enc_layers + 2 * cfg.n_layers
+    want, launched = run(torch.device("cpu"))
+    assert launched == 0
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        assert float((g - w).abs().max()) <= 2e-2 * float(w.abs().max())
+    rng = np.random.default_rng(2)
+    reqs = [(rng.integers(0, cfg.vocab_size, n),
+             (rng.standard_normal((cfg.enc_seq, cfg.d_model)) * 0.1
+              ).astype(np.float32)) for n in (5, 9, 3)]
+    srv = BatchServer(model, params, slots=2, seq_capacity=32, device=card)
+    n0 = ops.flash_attention.launches
+    done = srv.serve([Request(rid=i, prompt=p, max_new_tokens=4,
+                              extras={"enc_embeds": e})
+                      for i, (p, e) in enumerate(reqs)])
+    assert ops.flash_attention.launches - n0 == 3 * launched_card
+    cpu = model.load(params, "cpu")
+    for r in done:
+        assert len(r.output) == 4
+        p, e = reqs[r.rid]
+        lg, _ = model.prefill(cpu, {"tokens": torch.as_tensor(p)[None],
+                                    "enc_embeds": torch.as_tensor(e)[None]})
+        top2 = torch.topk(lg[0, -1].float(), 2).values
+        if float(top2[0] - top2[1]) > 4e-2 * float(lg.float().abs().max()):
+            assert r.output[0] == int(lg[0, -1].float().argmax())
 
 
 @pytest.mark.gpu

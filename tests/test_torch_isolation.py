@@ -152,18 +152,24 @@ def test_launcher_serves_jamba_on_cpu(capsys):
 
 
 def test_unported_archs_and_families_name_their_roadmap_item():
+    """No arch is left unported: every name of the JAX registry resolves
+    in the port, to its family; an unknown arch or family raises."""
     from dataclasses import replace
-    from repro_torch.configs import get_config
+    from repro.configs import REGISTRY as JAX_REGISTRY
+    from repro_torch.configs import REGISTRY, get_config
     from repro_torch.models import build_model
-    with pytest.raises(KeyError, match="ROADMAP.md Queue 1 item 6b"):
-        get_config("whisper-small")
+    assert sorted(REGISTRY) == sorted(JAX_REGISTRY)
+    for name, want in JAX_REGISTRY.items():
+        cfg = get_config(name)
+        assert cfg.family == want.family
+        assert build_model(cfg).cfg is cfg
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("no-such-arch")
-    audio = replace(get_config("stablelm-1.6b"), family="audio")
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        build_model(audio)
+    with pytest.raises(ValueError, match="family 'speech'"):
+        build_model(replace(get_config("stablelm-1.6b"), family="speech"))
     assert get_config("jamba-v0.1-52b").family == "hybrid"
     assert get_config("qwen2-vl-7b").family == "vlm"
+    assert get_config("whisper-small").family == "audio"
 
 
 def test_launcher_serves_qwen2_vl_on_cpu(capsys):
