@@ -5,7 +5,7 @@
     python3 chip_smoke.py --kernel-times [--src DIR]
     python3 chip_smoke.py --path-times [--src DIR]
 
-Seven paths, each at full width with random weights from --seed, in bf16:
+Eight paths, each at full width with random weights from --seed, in bf16:
 stablelm-1.6b served (dense; prefill attention in the flash-attention
 kernel), olmoe-1b-7b served (MoE; the same attention kernel, and the
 expert FFN in the moe_mlp kernel), stablelm-1.6b trained (AdamW with int8
@@ -18,7 +18,9 @@ qwen2-vl-7b served (the VLM backbone: M-RoPE, a 256-token vision prefix
 in front of every prompt; prefill attention in the flash kernel at GQA
 28/4, its mask the vision prefix's, see phase 3), and whisper-small
 served (encoder-decoder: 1500 encoder frames a request; flash not causal
-in the encoder and in cross attention, causal in the decoder).
+in the encoder and in cross attention, causal in the decoder), and
+stablelm-1.6b trained through the Trainer loop at 2 layers (checkpoints,
+a failure, a restore and a replay; the quantize kernel in every step).
 Phases, each of which raises on failure (the script then exits non-zero):
 
 1. card     -- the card's name and power limit (nvidia-smi), torch and CUDA
@@ -140,6 +142,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
                = 36 x 8 flash launches, none in a decode step); flash
                against SDPA at the encoder's shape (not causal, 1500 x
                1500) and at cross attention's (416 x 1500); phase 7 for it
+20. trainer -- whisper freed; stablelm-1.6b at full width cut to 2 of its 24
+               layers, trained by repro_torch.train.Trainer: 6 steps of 4 x
+               2048 tokens with grad_compress, async checkpoints every 2
+               steps (keep_n=1) under _ckpt/, a SimulatedFailure at step 5:
+               the trainer restores step 4 and replays it.  The replayed
+               step's loss equals its first run's bit for bit; the loss
+               falls; one quantize launch per leaf per step run, replay
+               included, and no forward-only kernel launch; the final
+               checkpoint, restored into TensorSpecs on the card, equals
+               the trainer's final state bit for bit; the checkpoint's
+               bytes, the directory's free space (three checkpoints or it
+               raises), a save's foreground ms, the background write's
+               and the restore's seconds and GB/s
 
 Every kernel's bound is its ``cost`` (flops, bytes) in its ``ops.py``, the
 definition the dry run's kernel ops are costed by.  It prints the fidelity
@@ -275,6 +290,14 @@ VLM_ATTN_SHAPE = dict(b=1, s=2048, h=28, kvh=4, d=128)
 # the model phase: as stablelm's, the two paths differ only in the order
 # of f32 sums inside attention; 28 layers spread the one-ulp flips
 VLM_LOGIT_RTOL = 0.05
+# the Trainer (phase 20): stablelm-1.6b at full width cut to 2 of its 24
+# layers (514 M params; its f32 params, moments and error buffer make an
+# 8.2 GB checkpoint, 26 GB at full depth), checkpoints every 2 steps into
+# TRAINER_CKPT_DIR (listed in .gitignore, removed at the phase's end), a
+# failure injected at step 5, so that step 4 is replayed from the step-4
+# checkpoint
+TRAINER_LAYERS, TRAINER_STEPS, TRAINER_EVERY, TRAINER_FAIL_AT = 2, 6, 2, 5
+TRAINER_CKPT_DIR = "_ckpt"
 # whisper-small at full width and depth: 12 encoder layers over its 1500
 # frames, 12 decoder layers (285.5 M params); prompts and new tokens within
 # its published 448-token decoder context (max_target_positions,
@@ -2047,6 +2070,13 @@ def main() -> int:
     whisper_launches, t_whisper = phase_whisper(torch, np, counters,
                                                 args.seed, card)
 
+    # 20. the Trainer loop, whisper freed
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer_launches, trainer = phase_trainer(torch, counters, args.seed,
+                                              card)
+    print(json.dumps({"trainer": trainer}))
+
     by_path = {ARCH: dense_launches, MOE_ARCH: moe_launches,
                f"{ARCH} train": train_launches,
                f"{MOE_ARCH} train ({MOE_TRAIN_LAYERS} layers)":
@@ -2055,7 +2085,9 @@ def main() -> int:
                f"{RWKV_ARCH} train ({RWKV_TRAIN_LAYERS} layers)":
                    rwkv_train_launches,
                f"{JAMBA_ARCH} ({jcfg.n_layers} layers)": jamba_launches,
-               VLM_ARCH: vlm_launches, WHISPER_ARCH: whisper_launches}
+               VLM_ARCH: vlm_launches, WHISPER_ARCH: whisper_launches,
+               f"{ARCH} trainer ({TRAINER_LAYERS} layers)":
+                   trainer_launches}
     rows = [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -2099,7 +2131,7 @@ def main() -> int:
         {"name": "quantize", "route": "cuda",
          "source": "src/repro_torch/kernels/quantize/csrc/quantize.cu",
          "replaces": "src/repro/kernels/quantize/kernel.py:19",
-         "launches": train_launches["quantize"],
+         "launches": sum(v["quantize"] for v in by_path.values()),
          "launches_by_path": {a: v["quantize"] for a, v in by_path.items()},
          **tq},
         {"name": "rwkv6_wkv", "route": "cuda",
@@ -2242,6 +2274,125 @@ def phase_whisper(torch, np, counters, seed: int, card: str):
     phase_profile(torch, np, cfg, model, params, seed, card,
                   lens_range=WHISPER_LENS, cap=WHISPER_CAP)
     return launches, times
+
+
+def phase_trainer(torch, counters, seed: int, card: str):
+    """Phase 20: stablelm-1.6b at full width cut to TRAINER_LAYERS, trained
+    by ``repro_torch.train.Trainer`` with async checkpoints every
+    TRAINER_EVERY steps (keep_n=1) and a SimulatedFailure at step
+    TRAINER_FAIL_AT; see the module docstring for what it checks.
+    Returns (launches of the Trainer's run, the checkpoint's numbers)."""
+    import dataclasses
+    import shutil
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import (TensorSpec, leaves,
+                                           leaves_with_path, map_leaves)
+    from repro_torch.train import SimulatedFailure, Trainer
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=TRAINER_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    model, opts, state, step, pipe = _train_setup(torch, cfg, seed)
+    n_params = sum(p.numel() for p in leaves(state["params"]))
+    n_leaves = len(list(leaves(state["params"])))
+    nbytes = sum(x.numel() * x.element_size() for x in leaves(state))
+    root = ROOT / TRAINER_CKPT_DIR
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    try:
+        free = shutil.disk_usage(root).free
+        print(f"trainer: {cfg.name} at {TRAINER_LAYERS} of 24 layers, "
+              f"{n_params / 1e6:.2f} M params; a checkpoint (f32 params, "
+              f"m, v, error buffer, counters) is {nbytes} bytes "
+              f"({nbytes / 1e9:.3f} GB); {free / 1e9:.1f} GB free under "
+              f"{root}")
+        check(free >= 3 * nbytes,
+              f"{free} bytes free under {root}: under three checkpoints "
+              f"of {nbytes}")
+        tr = Trainer(model=model, train_step=step, pipeline=pipe,
+                     state=state, ckpt_interval=TRAINER_EVERY,
+                     heartbeat_path=str(root / "heartbeat.json"))
+        tr.ckpt = CheckpointManager(str(root / "ckpt"), keep_n=1)
+        tr.instantiate()
+        del state
+        for wrapper in counters.values():
+            wrapper.launches = 0
+        t0 = time.perf_counter()
+        res = tr.run(TRAINER_STEPS,
+                     fail_at={TRAINER_FAIL_AT: SimulatedFailure("injected")})
+        run_s = time.perf_counter() - t0
+        launches = {n: w.launches for n, w in counters.items()}
+        hist = res["history"]
+        for h in hist:
+            print(f"trainer step {h['step']}: loss {h['loss']!r} "
+                  f"{h['time_s'] * 1e3:.1f} ms")
+        print(tr.stats.dump_text())
+        steps = [h["step"] for h in hist]
+        check(int(tr.s_failures.value()) == 1,
+              f"{tr.s_failures.value()} failures recovered, want 1")
+        check(res["final_step"] == TRAINER_STEPS,
+              f"final step {res['final_step']}, want {TRAINER_STEPS}")
+        replay = TRAINER_FAIL_AT - 1
+        check(steps.count(replay) == 2, f"steps run {steps}: step {replay} "
+                                        f"not replayed once")
+        first, again = (h["loss"] for h in hist if h["step"] == replay)
+        print(f"trainer: step {replay} loss {first!r} in its first run, "
+              f"{again!r} replayed from the step-{replay} checkpoint")
+        check(first == again, f"the replayed step {replay}'s loss "
+                              f"{again!r} differs from its first run's "
+                              f"{first!r}")
+        check(all(math.isfinite(h["loss"]) for h in hist),
+              f"losses {[h['loss'] for h in hist]}")
+        check(hist[-1]["loss"] < hist[0]["loss"],
+              f"loss did not fall: {hist[0]['loss']} -> {hist[-1]['loss']}")
+        want = {"flash_attention": 0, "moe_mlp": 0, "wkv6": 0,
+                "quantize": n_leaves * len(hist)}
+        for n, got in launches.items():
+            check(got == want[n], f"{n} launched {got} times in the "
+                                  f"Trainer's run, want {want[n]}")
+        check(tr.heartbeat.alive(max_age=600), "the heartbeat is stale")
+        check(tr.ckpt.available_steps() == [TRAINER_STEPS],
+              f"checkpoints {tr.ckpt.available_steps()} after keep_n=1")
+        saves = tr.ckpt.saves
+        fg_ms = tr.ckpt.snapshot_seconds / saves * 1e3
+        write_s = tr.ckpt.save_seconds / saves
+        # the final checkpoint into a fresh target of specs on the card
+        target = map_leaves(lambda x: TensorSpec(
+            tuple(x.shape), x.dtype, x.requires_grad), tr.state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored = tr.ckpt.restore(target, device="cuda")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        for (key, a), b in zip(leaves_with_path(restored),
+                               leaves(tr.state)):
+            check(a.device.type == "cuda" and a.dtype == b.dtype
+                  and a.requires_grad == b.requires_grad
+                  and _same_bits(torch, a.detach(), b.detach()),
+                  f"{key}: the restored final checkpoint differs from the "
+                  f"trainer's final state")
+        del restored
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+    out = {"arch": f"{cfg.name} ({TRAINER_LAYERS} layers)",
+           "params": n_params, "ckpt_bytes": nbytes, "saves": saves,
+           "steps_run": steps, "replayed_loss": [first, again],
+           "save_foreground_ms": fg_ms, "write_s": write_s,
+           "write_gb_s": nbytes / write_s / 1e9, "restore_s": restore_s,
+           "restore_gb_s": nbytes / restore_s / 1e9, "run_s": run_s,
+           "phase_s": phase_s, "launches": launches,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "card": card}
+    print(f"trainer: {saves} saves of {nbytes / 1e9:.3f} GB: foreground "
+          f"(copy to host) {fg_ms:.1f} ms a save, background write "
+          f"{write_s:.2f} s a save = {out['write_gb_s']:.3f} GB/s; restore "
+          f"into specs on the card {restore_s:.2f} s = "
+          f"{out['restore_gb_s']:.3f} GB/s; the final checkpoint restored "
+          f"bit for bit; run {run_s:.1f} s, phase {phase_s:.1f} s; launches "
+          f"{launches}; peak device memory {out['peak_gib']:.2f} GiB "
+          f"[{card}]")
+    return launches, out
 
 
 def phase_prefix_timing(torch, ops, prefix: int, card: str) -> dict:

@@ -2,12 +2,13 @@
 
 ``python -m repro_torch.launch.train --arch <id> --steps 100 ...``
 
-A plain step loop over the synthetic pipeline: a smoke-sized config
-unless ``--full``, AdamW with a warmup of 10 steps.  It runs on the GPU;
-``--device cpu`` runs it on the CPU.  It prints one line per step and
-the JAX launcher's final JSON keys.  ``--ckpt-dir`` raises: the
-checkpoint manager and the ``Trainer`` come with ROADMAP.md Queue 1
-items 7-8.
+The ``Trainer`` over the synthetic pipeline, as the JAX launcher: a
+smoke-sized config unless ``--full``, AdamW with a warmup of 10 steps,
+with ``--ckpt-dir`` a checkpoint every 50 steps and one of the final
+state.  It runs on the GPU; ``--device cpu`` runs it on the CPU.  It
+prints one line per step, the stats dump on stderr (its distribution
+prints as a dict), and last the JAX launcher's final JSON keys, the only
+text on stdout from its first ``{`` on.
 """
 
 from __future__ import annotations
@@ -15,16 +16,14 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-import time
-
-import numpy as np
+import sys
 
 from repro_torch.configs import REGISTRY, get_config, smoke
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.data import SyntheticPipeline
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model
-from repro_torch.train import (batch_to, build_train_step,
+from repro_torch.train import (Trainer, build_train_step,
                                default_options_for, init_train_state)
 
 
@@ -45,10 +44,6 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without one)")
     args = ap.parse_args(argv)
-    if args.ckpt_dir:
-        raise NotImplementedError(
-            "--ckpt-dir: checkpointing and the Trainer are not ported yet "
-            "(ROADMAP.md Queue 1 items 7-8)")
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -67,20 +62,18 @@ def main(argv=None) -> dict:
     state = init_train_state(model, args.seed, opts, device)
     step = build_train_step(model, opts)
     pipe = SyntheticPipeline(cfg, shape, seed=args.seed)
-    losses, seconds = [], []
-    for i in range(args.steps):
-        batch = batch_to(pipe.batch(i), device)
-        t0 = time.perf_counter()
-        state, metrics = step(state, batch)
-        m = {k: float(v) for k, v in metrics.items()}   # waits for the step
-        seconds.append(time.perf_counter() - t0)
-        losses.append(m["loss"])
-        print(f"step {i}: loss {m['loss']:.4f} aux {m['aux_loss']:.4f} "
-              f"grad_norm {m['grad_norm']:.4f} lr {m['lr']:.3e} "
-              f"{seconds[-1] * 1e3:.1f} ms")
-    res = {"first_loss": losses[0], "last_loss": losses[-1],
-           "steps": int(state["step"]),
-           "median_step_s": float(np.median(seconds))}
+    tr = Trainer(model=model, train_step=step, pipeline=pipe, state=state,
+                 ckpt_dir=args.ckpt_dir, ckpt_interval=50)
+    tr.instantiate()
+    out = tr.run(args.steps)
+    h = out["history"]
+    for r in h:
+        print(f"step {r['step']}: loss {r['loss']:.4f} "
+              f"{r['time_s'] * 1e3:.1f} ms")
+    print(tr.stats.dump_text(), file=sys.stderr)
+    res = {"first_loss": h[0]["loss"], "last_loss": h[-1]["loss"],
+           "steps": out["final_step"],
+           "median_step_s": tr.watchdog.median()}
     print(json.dumps(res, indent=1))
     return res
 

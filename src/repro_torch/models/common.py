@@ -102,6 +102,22 @@ def leaves(tree: Tree) -> Iterator[torch.Tensor]:
         yield tree
 
 
+def leaves_with_path(tree: Tree, path: Tuple[str, ...] = ()
+                     ) -> Iterator[Tuple[str, Any]]:
+    """``(key, leaf)`` in ``leaves`` order.  The key joins the path with
+    ``/``: a dict entry adds its key, a tuple entry its index, as the JAX
+    package's checkpoint keys (``jax.tree_util.tree_flatten_with_path``),
+    e.g. ``params/layers/0/ffn/wg`` for a hybrid arch."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from leaves_with_path(tree[k], path + (str(k),))
+    elif _is_tuple(tree):
+        for i, t in enumerate(tree):
+            yield from leaves_with_path(t, path + (str(i),))
+    else:
+        yield "/".join(path), tree
+
+
 def unflatten(tree: Tree, values) -> Tree:
     """A tree shaped like ``tree`` holding ``values`` in ``leaves`` order."""
     it = iter(values)

@@ -205,3 +205,81 @@ def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):
                          text=True, timeout=120, env=env, cwd=tmp_path)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+PURE_COPIES = ["core/stats.py", "core/simobject.py", "train/ft.py",
+               "train/ft_policy.py"]
+
+
+def _body(path: Path) -> str:
+    """The source below the module docstring, with ``repro.`` ->
+    ``repro_torch.`` in its import lines."""
+    text = path.read_text()
+    doc = ast.parse(text).body[0]
+    assert isinstance(doc, ast.Expr) and isinstance(doc.value, ast.Constant)
+    lines = text.splitlines()[doc.end_lineno:]
+    return "\n".join(
+        ln.replace("from repro.", "from repro_torch.")
+        .replace("import repro.", "import repro_torch.")
+        if ln.lstrip().startswith(("from repro.", "import repro.")) else ln
+        for ln in lines)
+
+
+@pytest.mark.parametrize("rel", PURE_COPIES)
+def test_pure_copies_equal_their_originals(rel):
+    """The port's copies of the pure modules the Trainer needs equal the
+    JAX package's source line for line; the one permitted difference is
+    the module docstring, which names the copy."""
+    copy, orig = PORT / rel, ROOT / "src" / "repro" / rel
+    assert _body(copy) == _body(orig)
+    mod = rel[:-3].replace("/", ".")
+    assert f"A copy of ``repro.{mod}``" in ast.get_docstring(
+        ast.parse(copy.read_text()))
+
+
+TRAINER_BLOCKED = r"""
+import sys
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+            raise ImportError(f"blocked: {name}")
+sys.meta_path.insert(0, Block())
+import repro_torch.checkpoint, repro_torch.train.trainer
+from repro_torch.train import Trainer, FTPolicy, SimulatedFailure
+print("OK", sorted(n for n in sys.modules
+                   if n.startswith(("repro_torch.checkpoint",
+                                    "repro_torch.train"))))
+"""
+
+
+def test_checkpoint_and_trainer_import_with_jax_and_repro_blocked():
+    out = subprocess.run(
+        [sys.executable, "-c", TRAINER_BLOCKED], capture_output=True,
+        text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert out.returncode == 0, out.stderr
+    assert ("OK ['repro_torch.checkpoint', 'repro_torch.checkpoint.manager', "
+            "'repro_torch.train', 'repro_torch.train.ft', "
+            "'repro_torch.train.ft_policy', 'repro_torch.train.step', "
+            "'repro_torch.train.trainer']") in out.stdout, out.stdout
+
+
+def test_trainer_on_the_default_device_raises_without_a_card(tmp_path):
+    """The Trainer runs where its state lies; a state, a launcher run or
+    a restore into specs on the default device needs the card."""
+    _no_card()
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import build_model
+    from repro_torch.models.common import TensorSpec
+    from repro_torch.train import TrainOptions, init_train_state
+    model = build_model(smoke(get_config("stablelm-1.6b")))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_train_state(model, 0, TrainOptions())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_train.main(["--steps", "1", "--ckpt-dir", str(tmp_path)])
+    mgr = CheckpointManager(str(tmp_path), async_save=False)
+    mgr.save({"w": torch.ones(2)}, 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mgr.restore({"w": TensorSpec((2,), torch.float32)})

@@ -365,6 +365,21 @@ def test_launcher_raises_without_a_card_and_for_a_checkpoint_dir(tmp_path):
         launch_train.main(["--steps", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_train_state(build_model(configs("stablelm-1.6b")[1]), 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        launch_train.main(["--steps", "1", "--device", "cpu",
-                           "--ckpt-dir", str(tmp_path)])
+
+
+def test_launcher_checkpoints_on_cpu(tmp_path, capsys):
+    """``--ckpt-dir`` runs the Trainer with checkpoints: the final state
+    is on disk and restores into the port's train state."""
+    from repro_torch.checkpoint import CheckpointManager
+    res = launch_train.main(["--steps", "4", "--batch", "2", "--seq", "16",
+                             "--device", "cpu", "--ckpt-dir", str(tmp_path)])
+    out = capsys.readouterr()
+    assert json.loads(out.out[out.out.index("{"):]) == res
+    assert res["steps"] == 4 and "step 3:" in out.out
+    assert "trainer.steps" in out.err            # the stats dump
+    mgr = CheckpointManager(str(tmp_path))
+    assert mgr.available_steps() == [4]
+    model = build_model(configs("stablelm-1.6b")[1])
+    state = mgr.restore(init_train_state(model, 0, default_options_for(
+        model.cfg), "cpu"))
+    assert int(state["step"]) == 4 and int(state["opt"]["count"]) == 4
