@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --kernel-times [--src DIR]
     python3 chip_smoke.py --path-times [--src DIR]
+    python3 chip_smoke.py --decode-ab PARENT_SRC [--src DIR]
 
 Eight paths, each at full width with random weights from --seed, in bf16:
 stablelm-1.6b served (dense; prefill attention in the flash-attention
@@ -155,6 +156,23 @@ Phases, each of which raises on failure (the script then exits non-zero):
                bytes, the directory's free space (three checkpoints or it
                raises), a save's foreground ms, the background write's
                and the restore's seconds and GB/s
+21. mesh   -- a world-1 NCCL process group (an in-memory store) and the
+               (1, 1) ("data", "model") mesh of repro_torch.launch.mesh;
+               stablelm-1.6b at full width and depth, its params
+               distributed by MeshSharder.param_shardings(param_specs()[1]):
+               a 2048-token prefill and 8 decode steps through
+               build_prefill_step and build_decode_step with the sharder,
+               logits bit for bit equal to the same steps on plain tensors,
+               exactly 24 flash launches in the prefill and none in decode;
+               olmoe-1b-7b the same way (16 flash and 16 moe_mlp launches a
+               prefill, 16 moe_mlp a decode step); the host ms of the
+               sharded and the plain prefill and decode step, in turns;
+               stablelm-1.6b at 2 of 24 layers: 2 train steps on DTensor
+               state with grad_compress and shard_like_params, the losses
+               bit for bit equal to the plain steps', 15 quantize launches
+               a step; phase 20's final checkpoint restored with shardings
+               onto the mesh, bit for bit against the plain restore; the
+               process group destroyed
 
 Every kernel's bound is its ``cost`` (flops, bytes) in its ``ops.py``, the
 definition the dry run's kernel ops are costed by.  It prints the fidelity
@@ -179,7 +197,12 @@ phase 5, the host time of a wrapper call), then prints them as one JSON line
 and the card's line.  ``--src DIR`` imports and builds ``repro_torch`` from
 DIR instead of this checkout's ``src``: run once per tree, in turns, to
 compare two trees (e.g. a parent commit unpacked with ``git archive``) on
-one card.
+one card.  ``--decode-ab PARENT_SRC`` times the plain decode step of the
+tree at ``--src`` and of the one at PARENT_SRC in one process, in turns
+on the same params, tokens and cache contents (stablelm-1.6b and
+olmoe-1b-7b at full width, the serve run's batch), so that both trees
+share the host's noise; it prints the times and the ratios as one JSON
+line and the card's line.
 """
 
 from __future__ import annotations
@@ -293,11 +316,18 @@ VLM_LOGIT_RTOL = 0.05
 # the Trainer (phase 20): stablelm-1.6b at full width cut to 2 of its 24
 # layers (514 M params; its f32 params, moments and error buffer make an
 # 8.2 GB checkpoint, 26 GB at full depth), checkpoints every 2 steps into
-# TRAINER_CKPT_DIR (listed in .gitignore, removed at the phase's end), a
-# failure injected at step 5, so that step 4 is replayed from the step-4
-# checkpoint
+# TRAINER_CKPT_DIR (listed in .gitignore, removed after phase 21, which
+# restores the final checkpoint onto a mesh), a failure injected at step
+# 5, so that step 4 is replayed from the step-4 checkpoint
 TRAINER_LAYERS, TRAINER_STEPS, TRAINER_EVERY, TRAINER_FAIL_AT = 2, 6, 2, 5
 TRAINER_CKPT_DIR = "_ckpt"
+# the mesh (phase 21): a world-1 NCCL group and the (1, 1) ("data",
+# "model") mesh; stablelm-1.6b and olmoe-1b-7b served at full width and
+# depth with DTensor params (a 2048-token prefill, 8 decode steps), and
+# stablelm-1.6b at 2 layers trained 2 steps on DTensor state; each held
+# bit for bit against the same steps on plain tensors
+MESH_SEQ, MESH_DECODE_STEPS = 2048, 8
+MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS = 2, 2
 # whisper-small at full width and depth: 12 encoder layers over its 1500
 # frames, 12 decoder layers (285.5 M params); prompts and new tokens within
 # its published 448-token decoder context (max_target_positions,
@@ -412,10 +442,15 @@ def path_times(torch, np, card: str, src: Path, seed: int) -> None:
     synchronize, median and least of 5 after 2 warm-ups), the serve run
     of phase 5 (prefill ms per request, decode ms per step), and the host
     time of one kernel wrapper call at the decode step's shapes (moe_mlp)
-    and at a one-token prefill (flash), enqueued without a synchronize.
+    and at a one-token prefill (flash), enqueued without a synchronize,
+    and the aten and custom ops one decode step of the serve run's batch
+    dispatches (a ``TorchDispatchMode`` counting them by name).
     It calls nothing that a tree of an earlier slice lacks, so a parent
     tree runs it too."""
+    import collections
     import statistics
+
+    from torch.utils._python_dispatch import TorchDispatchMode
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import kernel, ops
@@ -423,7 +458,29 @@ def path_times(torch, np, card: str, src: Path, seed: int) -> None:
     from repro_torch.kernels.moe_mlp import ops as moe_ops
     from repro_torch.models import build_model
     from repro_torch.serve import BatchServer, Request
+    from repro_torch.serve.step import build_decode_step
     phase_build(build, (kernel, moe_kernel))
+
+    class OpCount(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = collections.Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n[str(func)] += 1
+            return func(*args, **(kwargs or {}))
+
+    def decode_ops(model, params, cfg):
+        step = build_decode_step(model)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (SERVE_SLOTS, 1),
+                                         device="cuda", generator=gen),
+                 "cache": model.init_cache(SERVE_SLOTS, SERVE_CAP, "cuda"),
+                 "cur_len": torch.arange(SERVE_SLOTS, device="cuda") + 100}
+        step(params, batch)
+        count = OpCount()
+        with count:
+            step(params, batch)
+        return dict(sorted(count.n.items()))
     gen = torch.Generator(device="cuda").manual_seed(13)
 
     def host_us(fn, blocks=20, n=100):
@@ -475,10 +532,107 @@ def path_times(torch, np, card: str, src: Path, seed: int) -> None:
                      "decode ms per step median": float(np.median(dec)),
                      "decode ms per step min": float(dec.min()),
                      "decode steps": srv.decode_steps}
+        del srv
+        ops_by_name = decode_ops(model, params, cfg)
+        out[arch]["decode ops per step"] = sum(ops_by_name.values())
+        out[arch]["decode ops by name"] = ops_by_name
         print(f"path times {arch}: {out[arch]} [{card}]")
-        del params, model, srv
+        del params, model
         torch.cuda.empty_cache()
     print(json.dumps({"src": str(src), "path_times": out}))
+
+
+def decode_ab(torch, np, card: str, src: Path, parent: Path,
+              seed: int, turns: int = 60) -> None:
+    """--decode-ab: the plain decode step of ``src`` (A) and of
+    ``parent`` (B) in one process.  B's ``repro_torch`` is copied under
+    a temporary directory as ``repro_torch_ab`` (the name replaced in
+    its sources, its custom ops' namespace with it) so that both import
+    side by side.  For each arch: one params tree, a cache each (zeros,
+    capacity SERVE_CAP) and the same tokens and per-slot lengths; the
+    first steps' logits must agree bit for bit; then ``turns`` turns of
+    A, B, B, A, each step's host ms ending in a synchronize.  The ratio
+    B / A of each turn's means, its median, and each tree's median and
+    least step are printed."""
+    import re
+    import shutil
+    import statistics
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels.moe_mlp import kernel as moe_kernel
+    from repro_torch.models import build_model
+    from repro_torch.serve.step import build_decode_step
+    tmp = Path(tempfile.mkdtemp(prefix="decode_ab_"))
+    try:
+        dst = tmp / "repro_torch_ab"
+        shutil.copytree(parent / "repro_torch", dst,
+                        ignore=shutil.ignore_patterns("_build",
+                                                      "__pycache__"))
+        for f in dst.rglob("*.py"):
+            f.write_text(re.sub(r"\brepro_torch\b", "repro_torch_ab",
+                                f.read_text()))
+        sys.path.insert(0, str(tmp))
+        import importlib
+        ab = {m: importlib.import_module(f"repro_torch_ab.{m}")
+              for m in ("configs", "kernels.build", "kernels.moe_mlp.kernel",
+                        "models", "serve.step")}
+        phase_build(build, (moe_kernel,))
+        phase_build(ab["kernels.build"], (ab["kernels.moe_mlp.kernel"],))
+        gen = torch.Generator(device="cuda").manual_seed(17)
+        out = {}
+        for arch in (ARCH, MOE_ARCH):
+            cfg = get_config(arch)
+            model = build_model(cfg)
+            model_b = ab["models"].build_model(ab["configs"].get_config(arch))
+            params = model.load(model.init(seed, "cuda"), "cuda")
+            steps = {"A": build_decode_step(model),
+                     "B": ab["serve.step"].build_decode_step(model_b)}
+            caches = {"A": model.init_cache(SERVE_SLOTS, SERVE_CAP, "cuda"),
+                      "B": model_b.init_cache(SERVE_SLOTS, SERVE_CAP,
+                                              "cuda")}
+            tokens = torch.randint(0, cfg.vocab_size, (SERVE_SLOTS, 1),
+                                   device="cuda", generator=gen)
+            cur = torch.arange(SERVE_SLOTS, device="cuda") * 97 + 100
+
+            def run(t):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, logits, _ = steps[t](params, {"tokens": tokens,
+                                                 "cache": caches[t],
+                                                 "cur_len": cur})
+                torch.cuda.synchronize()
+                return (time.perf_counter() - t0) * 1e3, logits
+
+            _, la = run("A")
+            _, lb = run("B")
+            if not torch.equal(la, lb):
+                raise RuntimeError(f"decode-ab {arch}: the trees' logits "
+                                   f"differ")
+            ms = {"A": [], "B": []}
+            ratios = []
+            for _ in range(turns):
+                turn = {"A": [], "B": []}
+                for t in "ABBA":
+                    turn[t].append(run(t)[0])
+                for t in "AB":
+                    ms[t] += turn[t]
+                ratios.append(statistics.mean(turn["B"])
+                              / statistics.mean(turn["A"]))
+            out[arch] = {
+                "A ms median": statistics.median(ms["A"]),
+                "B ms median": statistics.median(ms["B"]),
+                "A ms min": min(ms["A"]), "B ms min": min(ms["B"]),
+                "B/A median of turns": statistics.median(ratios),
+                "B/A turns quartiles": statistics.quantiles(ratios, n=4),
+                "turns": turns}
+            print(f"decode-ab {arch}: {out[arch]} [{card}]")
+            del params, caches, model, model_b, steps
+            torch.cuda.empty_cache()
+        print(json.dumps({"src": str(src), "parent": str(parent),
+                          "decode_ab": out}))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def phase_sweep(torch, ops) -> None:
@@ -1872,6 +2026,9 @@ def main() -> int:
                     help="only build and time the kernels")
     ap.add_argument("--path-times", action="store_true",
                     help="only time stablelm's and olmoe's serving paths")
+    ap.add_argument("--decode-ab", type=Path, metavar="PARENT_SRC",
+                    help="only time the plain decode step of --src against "
+                         "that of the tree at PARENT_SRC, in one process")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the tree to import repro_torch from")
     args = ap.parse_args()
@@ -1888,17 +2045,22 @@ def main() -> int:
     sys.path.insert(0, str(src))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if args.kernel_times or args.path_times:
+    if args.kernel_times or args.path_times or args.decode_ab:
         card = card_line()
         print(f"card: {card}; torch {torch.__version__}, CUDA "
               f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
         import numpy as np
         with torch.no_grad():
-            (kernel_times if args.kernel_times else path_times)(
-                torch, np, card, src, args.seed)
+            if args.decode_ab:
+                decode_ab(torch, np, card, src, args.decode_ab.resolve(),
+                          args.seed)
+            else:
+                (kernel_times if args.kernel_times else path_times)(
+                    torch, np, card, src, args.seed)
         print(card)
         return 0
     import gc
+    import shutil
 
     import numpy as np
     from repro_torch.configs import get_config
@@ -2070,12 +2232,22 @@ def main() -> int:
     whisper_launches, t_whisper = phase_whisper(torch, np, counters,
                                                 args.seed, card)
 
-    # 20. the Trainer loop, whisper freed
+    # 20. the Trainer loop, whisper freed; 21. the mesh, whose restore
+    # reads phase 20's final checkpoint
     gc.collect()
     torch.cuda.empty_cache()
-    trainer_launches, trainer = phase_trainer(torch, counters, args.seed,
-                                              card)
-    print(json.dumps({"trainer": trainer}))
+    try:
+        trainer_launches, trainer = phase_trainer(torch, counters,
+                                                  args.seed, card)
+        print(json.dumps({"trainer": trainer}))
+        gc.collect()
+        torch.cuda.empty_cache()
+        mesh_launches, mesh = phase_mesh(torch, np, counters, args.seed,
+                                         card, ROOT / TRAINER_CKPT_DIR
+                                         / "ckpt")
+    finally:
+        shutil.rmtree(ROOT / TRAINER_CKPT_DIR, ignore_errors=True)
+    print(json.dumps({"mesh": mesh}))
 
     by_path = {ARCH: dense_launches, MOE_ARCH: moe_launches,
                f"{ARCH} train": train_launches,
@@ -2087,7 +2259,7 @@ def main() -> int:
                f"{JAMBA_ARCH} ({jcfg.n_layers} layers)": jamba_launches,
                VLM_ARCH: vlm_launches, WHISPER_ARCH: whisper_launches,
                f"{ARCH} trainer ({TRAINER_LAYERS} layers)":
-                   trainer_launches}
+                   trainer_launches, **mesh_launches}
     rows = [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -2372,8 +2544,10 @@ def phase_trainer(torch, counters, seed: int, card: str):
                   f"{key}: the restored final checkpoint differs from the "
                   f"trainer's final state")
         del restored
-    finally:
+    except BaseException:
+        # on success the checkpoints stay for phase 21; main removes them
         shutil.rmtree(root, ignore_errors=True)
+        raise
     phase_s = time.perf_counter() - t_phase
     out = {"arch": f"{cfg.name} ({TRAINER_LAYERS} layers)",
            "params": n_params, "ckpt_bytes": nbytes, "saves": saves,
@@ -2393,6 +2567,228 @@ def phase_trainer(torch, counters, seed: int, card: str):
           f"{launches}; peak device memory {out['peak_gib']:.2f} GiB "
           f"[{card}]")
     return launches, out
+
+
+def phase_mesh(torch, np, counters, seed: int, card: str, ckpt_dir: Path):
+    """Phase 21: the sharded paths on a (1, 1) mesh of the card, each held
+    bit for bit against the same steps on plain tensors; see the module
+    docstring.  Returns (launches by path, the phase's numbers)."""
+    import gc
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import describe, make_mesh
+    t_phase = time.perf_counter()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        out = {"mesh": describe(mesh), "card": card}
+        launches = {}
+        for arch in (ARCH, MOE_ARCH):
+            launches[f"{arch} mesh"], out[arch] = _mesh_serve(
+                torch, np, counters, arch, seed, mesh, card)
+            gc.collect()
+            torch.cuda.empty_cache()
+        launches[f"{ARCH} mesh train ({MESH_TRAIN_LAYERS} layers)"], \
+            out["train"] = _mesh_train(torch, counters, seed, mesh, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["restore"] = _mesh_restore(torch, mesh, ckpt_dir, card)
+    finally:
+        dist.destroy_process_group()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"mesh: phase {out['phase_s']:.1f} s [{card}]")
+    return launches, out
+
+
+def _mesh_serve(torch, np, counters, arch: str, seed: int, mesh, card: str):
+    """``arch`` at full width served on ``mesh`` through the serving steps
+    with a ``MeshSharder``, against the same steps on plain tensors: the
+    prefill's and every decode step's logits bit for bit, the launches of
+    the sharded prefill and decode steps, and the host ms of both paths
+    in turns (plain, sharded, sharded, plain)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.dist.sharding import MeshSharder, make_rules
+    from repro_torch.models import build_model
+    from repro_torch.serve.step import build_decode_step, build_prefill_step
+    from torch.distributed.tensor import DTensor
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    cap = MESH_SEQ + MESH_DECODE_STEPS
+    params = model.load(model.init(seed, "cuda"), "cuda")
+    sh = MeshSharder(mesh, make_rules(
+        cfg, ShapeConfig("mesh", cap, 1, "prefill"), mesh))
+    dparams = sh.distribute(params, sh.param_shardings(model.param_specs()[1]))
+    check(all(isinstance(p, DTensor) for p in _leaves(dparams)),
+          f"{arch}: a param is not a DTensor on the mesh")
+    rng = np.random.default_rng(seed + 21)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, MESH_SEQ)),
+                             device="cuda")
+    paths = {"plain": (build_prefill_step(model, seq_capacity=cap),
+                       build_decode_step(model), params),
+             "sharded": (build_prefill_step(model, sh, seq_capacity=cap),
+                         build_decode_step(model, sh), dparams)}
+
+    def run(name, feed=None):
+        prefill, decode, p = paths[name]
+        for w in counters.values():
+            w.launches = 0
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = prefill(p, {"tokens": tokens})
+            torch.cuda.synchronize()
+            pre_ms = (time.perf_counter() - t0) * 1e3
+            pre = {n: w.launches for n, w in counters.items()}
+            for w in counters.values():
+                w.launches = 0
+            outs, fed = [logits], []
+            nxt = torch.argmax(logits[:, -1].float(), dim=-1)[:, None]
+            t0 = time.perf_counter()
+            for i in range(MESH_DECODE_STEPS):
+                tok = feed[i] if feed is not None else nxt
+                nxt, logits, cache = decode(p, {"tokens": tok, "cache": cache,
+                                                "cur_len": MESH_SEQ + i})
+                outs.append(logits)
+                fed.append(tok)
+            torch.cuda.synchronize()
+            dec_ms = (time.perf_counter() - t0) * 1e3 / MESH_DECODE_STEPS
+        dec = {n: w.launches for n, w in counters.items()}
+        return outs, fed, pre, dec, pre_ms, dec_ms
+
+    want, fed, _, _, p1, d1 = run("plain")
+    got, _, pre, dec, s1, e1 = run("sharded", fed)
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(isinstance(g, DTensor), f"{arch}: step {i}'s logits are not "
+                                      f"a DTensor")
+        check(_same_bits(torch, g.full_tensor(), w),
+              f"{arch}: the sharded {'prefill' if i == 0 else 'decode'} "
+              f"step {i}'s logits differ from the plain path's")
+    n_attn = flash_per_prefill(cfg)
+    n_moe = cfg.n_layers if cfg.n_experts else 0
+    want_pre = {"flash_attention": n_attn, "moe_mlp": n_moe, "quantize": 0,
+                "wkv6": 0}
+    want_dec = {"flash_attention": 0, "moe_mlp": n_moe * MESH_DECODE_STEPS,
+                "quantize": 0, "wkv6": 0}
+    for n in counters:
+        check(pre[n] == want_pre[n], f"{arch}: {n} launched {pre[n]} times "
+                                     f"in the sharded prefill, want "
+                                     f"{want_pre[n]}")
+        check(dec[n] == want_dec[n], f"{arch}: {n} launched {dec[n]} times "
+                                     f"in {MESH_DECODE_STEPS} sharded decode "
+                                     f"steps, want {want_dec[n]}")
+    *_, s2, e2 = run("sharded", fed)
+    *_, p2, d2 = run("plain", fed)
+    res = {"prefill_ms": {"plain": [p1, p2], "sharded": [s1, s2]},
+           "decode_step_ms": {"plain": [d1, d2], "sharded": [e1, e2]},
+           "launches": {"prefill": pre, "decode": dec},
+           "bit_for_bit_steps": len(got)}
+    print(f"mesh: {arch} at full width on the (1, 1) mesh: prefill (s="
+          f"{MESH_SEQ}) and {MESH_DECODE_STEPS} decode steps bit for bit "
+          f"against plain tensors; launches prefill {pre}, decode {dec}; "
+          f"host ms in turns (plain, sharded, sharded, plain): prefill "
+          f"{p1:.1f}, {s1:.1f}, {s2:.1f}, {p2:.1f}; decode step {d1:.2f}, "
+          f"{e1:.2f}, {e2:.2f}, {d2:.2f} [{card}]")
+    del params, dparams, paths
+    return {n: pre[n] + dec[n] for n in counters}, res
+
+
+def _mesh_train(torch, counters, seed: int, mesh, card: str):
+    """stablelm-1.6b at MESH_TRAIN_LAYERS layers: MESH_TRAIN_STEPS steps on
+    plain state, then the same steps on DTensor state with the sharder
+    and the params' axes; the losses bit for bit, 15 quantize launches a
+    sharded step."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.dist.sharding import MeshSharder, make_rules
+    from repro_torch.train import (batch_to, build_train_step,
+                                   init_train_state, train_state_specs)
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=MESH_TRAIN_LAYERS)
+    model, opts, state, step, pipe = _train_setup(torch, cfg, seed)
+    batches = [batch_to(pipe.batch(i), "cuda")
+               for i in range(MESH_TRAIN_STEPS)]
+    state, hist, _, n_leaves = _run_steps(torch, step, state, batches,
+                                          counters)
+    del state
+    sh = MeshSharder(mesh, make_rules(
+        cfg, ShapeConfig("mesh_train", TRAIN_SEQ, TRAIN_BATCH, "train"),
+        mesh))
+    _, axes = train_state_specs(model, opts)
+    dstate = sh.distribute(init_train_state(model, seed, opts, "cuda"),
+                           sh.param_shardings(axes))
+    dstep = build_train_step(model, opts, sh, axes["params"])
+    dbatches = [sh.distribute(b, sh.batch_shardings(b)) for b in batches]
+    for w in counters.values():
+        w.launches = 0
+    losses, ms = [], []
+    for b in dbatches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dstate, m = dstep(dstate, b)
+        losses.append(float(m["loss"].full_tensor()))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {n: w.launches for n, w in counters.items()}
+    want = [h["loss"] for h in hist]
+    check(losses == want, f"sharded train losses {losses}, plain {want}")
+    want_l = {"flash_attention": 0, "moe_mlp": 0, "wkv6": 0,
+              "quantize": n_leaves * MESH_TRAIN_STEPS}
+    for n, got in launches.items():
+        check(got == want_l[n], f"{n} launched {got} times in the sharded "
+                                f"train steps, want {want_l[n]}")
+    res = {"arch": f"{cfg.name} ({MESH_TRAIN_LAYERS} layers)",
+           "losses": losses, "launches": launches,
+           "step_ms": {"plain": [h["s"] * 1e3 for h in hist],
+                       "sharded": ms}}
+    print(f"mesh: {res['arch']} {MESH_TRAIN_STEPS} train steps on DTensor "
+          f"state, losses {losses} bit for bit against plain; launches "
+          f"{launches}; step ms plain {res['step_ms']['plain']}, sharded "
+          f"{ms} [{card}]")
+    del dstate, dbatches, batches
+    return launches, res
+
+
+def _mesh_restore(torch, mesh, ckpt_dir: Path, card: str):
+    """Phase 20's final checkpoint restored onto ``mesh`` with shardings,
+    leaf by leaf bit for bit against the plain restore."""
+    import dataclasses
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.dist.sharding import MeshSharder, make_rules
+    from repro_torch.models import build_model
+    from repro_torch.models.common import leaves, leaves_with_path
+    from repro_torch.train import TrainOptions, train_state_specs
+    from torch.distributed.tensor import DTensor
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=TRAINER_LAYERS)
+    model = build_model(cfg)
+    specs, axes = train_state_specs(model, TrainOptions(grad_compress=True))
+    sh = MeshSharder(mesh, make_rules(
+        cfg, ShapeConfig("mesh_train", TRAIN_SEQ, TRAIN_BATCH, "train"),
+        mesh))
+    mgr = CheckpointManager(str(ckpt_dir))
+    step = mgr.latest_step()
+    want = mgr.restore(specs, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = mgr.restore(specs, shardings=sh.param_shardings(axes))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    nbytes = 0
+    for (key, a), b in zip(leaves_with_path(got), leaves(want)):
+        check(isinstance(a, DTensor) and a.device.type == "cuda"
+              and a.requires_grad == b.requires_grad
+              and _same_bits(torch, a.detach().full_tensor(), b.detach()),
+              f"{key}: the checkpoint restored onto the mesh differs from "
+              f"its plain restore")
+        nbytes += b.numel() * b.element_size()
+    res = {"step": step, "bytes": nbytes, "restore_s": restore_s,
+           "restore_gb_s": nbytes / restore_s / 1e9}
+    print(f"mesh: phase 20's checkpoint (step {step}, {nbytes / 1e9:.3f} "
+          f"GB) restored onto the mesh bit for bit in {restore_s:.2f} s = "
+          f"{res['restore_gb_s']:.3f} GB/s [{card}]")
+    return res
 
 
 def phase_prefix_timing(torch, ops, prefix: int, card: str) -> dict:

@@ -28,8 +28,16 @@ a file is read back as ``uint16`` bits viewed as ``torch.bfloat16``.
 Other casts into the target's dtype follow numpy's ``astype`` (f32 to
 bf16 rounds to nearest even, as ``Tensor.to`` does).
 
-Placing leaves on a new mesh (``restore(..., shardings=...)``) waits for
-ROADMAP.md Queue 1 item 9 and raises.
+A state distributed on a device mesh (DTensor leaves) is saved as its
+global arrays: every rank gathers each leaf (``full_tensor``), rank 0
+writes, and the others wait for its publish in the next ``wait()``,
+where a failed write raises on every rank; the files are the bytes an
+unsharded save of the same state writes.
+``restore(..., shardings=...)`` reads the global arrays and places each
+leaf by its ``NamedSharding`` (``repro_torch.dist.sharding``) with
+``distribute_tensor``, each rank taking its shard of the array it read:
+a checkpoint written on any mesh, or by the JAX package, restores onto
+any other.
 """
 
 from __future__ import annotations
@@ -44,9 +52,12 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.common import (TensorSpec, leaves_with_path,
+from repro_torch.dist.sharding import NamedSharding
+from repro_torch.models.common import (TensorSpec, leaves, leaves_with_path,
                                        unflatten)
 
 BF16 = "bfloat16"
@@ -55,8 +66,11 @@ BF16 = "bfloat16"
 def _snapshot(leaf: torch.Tensor) -> torch.Tensor:
     """A host copy of ``leaf`` that later in-place updates cannot reach:
     a blocking copy off the card, a clone on the CPU (``.numpy()`` of a
-    CPU tensor shares its memory)."""
+    CPU tensor shares its memory).  A DTensor's global array, gathered
+    from every rank (each rank must call this)."""
     x = leaf.detach()
+    if isinstance(x, DTensor):
+        x = x.full_tensor()
     return x.clone() if x.device.type == "cpu" else x.to("cpu")
 
 
@@ -96,6 +110,7 @@ class CheckpointManager:
         self.saves = 0
         self.save_seconds = 0.0         # background writes, published saves
         self.snapshot_seconds = 0.0     # save()'s foreground copies to host
+        self._shared = False            # a distributed save is in flight
         os.makedirs(directory, exist_ok=True)
 
     # -- save ---------------------------------------------------------------
@@ -107,6 +122,11 @@ class CheckpointManager:
         self.snapshot_seconds += time.perf_counter() - t0
         treedef = f"PyTreeDef({_treedef(state)})"
         final = os.path.join(self.dir, f"step_{step:08d}")
+        self._shared = any(isinstance(x, DTensor) for x in leaves(state))
+        if self._shared and dist.get_rank() != 0:
+            if not self.async_save:
+                self.wait()                    # rank 0's outcome
+            return final                       # rank 0 writes
 
         def _write():
             t0 = time.perf_counter()
@@ -131,17 +151,21 @@ class CheckpointManager:
             self.saves += 1
             self.save_seconds += time.perf_counter() - t0
 
+        def _write_parked():
+            # a failed save must not be silent: park the exception and
+            # re-raise it on the next wait()/save()
+            try:
+                _write()
+            except BaseException as e:         # noqa: BLE001
+                self._exc = e
+
         if self.async_save:
-            def _write_async():
-                # a failed background save must not be silent: park the
-                # exception and re-raise it on the next wait()/save()
-                try:
-                    _write()
-                except BaseException as e:     # noqa: BLE001
-                    self._exc = e
-            self._thread = threading.Thread(target=_write_async,
+            self._thread = threading.Thread(target=_write_parked,
                                             daemon=True)
             self._thread.start()
+        elif self._shared:
+            _write_parked()
+            self.wait()
         else:
             _write()
         return final
@@ -149,12 +173,24 @@ class CheckpointManager:
     def wait(self) -> None:
         """Join the in-flight async save.  If it failed, the exception
         is re-raised here (a silently lost checkpoint would surface only
-        at restore time, after the data is gone)."""
+        at restore time, after the data is gone).  After a distributed
+        save every rank waits here until rank 0 has published it or
+        failed to, and then raises on every rank if it failed (the ranks
+        meet in one collective, so a lost checkpoint never leaves the
+        others waiting for rank 0)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
-        if self._exc is not None:
-            exc, self._exc = self._exc, None
+        exc, self._exc = self._exc, None
+        if self._shared:
+            self._shared = False
+            failed = [None if exc is None
+                      else f"{type(exc).__name__}: {exc}"]
+            dist.broadcast_object_list(failed, src=0)
+            if exc is None and failed[0] is not None:
+                raise RuntimeError(f"rank 0 failed to write the "
+                                   f"checkpoint: {failed[0]}")
+        if exc is not None:
             raise exc
 
     def _prune(self) -> None:
@@ -183,11 +219,12 @@ class CheckpointManager:
         of ``TensorSpec``s: new tensors in each target leaf's dtype, on a
         tensor leaf's device (a spec's go to ``device``: ``cuda`` unless
         the caller passes ``cpu``), requiring grad where the target leaf
-        does.  The latest step unless ``step`` is given."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore(shardings=...): placing leaves on a device mesh "
-                "is not ported yet (ROADMAP.md Queue 1 item 9)")
+        does.  The latest step unless ``step`` is given.
+
+        ``shardings``, a tree of ``NamedSharding``s congruent with
+        ``target``, puts each leaf on its sharding's mesh with its
+        placements instead (a DTensor; every rank reads the global array
+        and keeps its own shard, with no communication)."""
         self.wait()
         if step is None:
             step = self.latest_step()
@@ -197,6 +234,8 @@ class CheckpointManager:
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
 
+        places = (None if shardings is None
+                  else iter(list(leaves(shardings))))
         spec_device = None
         out = []
         for key, leaf in leaves_with_path(target):
@@ -205,13 +244,23 @@ class CheckpointManager:
             if tuple(t.shape) != tuple(leaf.shape):
                 raise ValueError(f"{key}: shape {tuple(t.shape)} in step "
                                  f"{step}, target {tuple(leaf.shape)}")
-            if isinstance(leaf, TensorSpec):
-                if spec_device is None:
-                    spec_device = resolve_device(device)
-                dev = spec_device
+            if places is not None:
+                s = next(places)
+                if not isinstance(s, NamedSharding):
+                    raise TypeError(f"{key}: shardings hold a "
+                                    f"{type(s).__name__}, want a "
+                                    f"NamedSharding (repro_torch.dist."
+                                    f"sharding)")
+                t = distribute_tensor(t.to(dtype=leaf.dtype), s.mesh,
+                                      s.placements, src_data_rank=None)
             else:
-                dev = leaf.device
-            t = t.to(device=dev, dtype=leaf.dtype)
+                if isinstance(leaf, TensorSpec):
+                    if spec_device is None:
+                        spec_device = resolve_device(device)
+                    dev = spec_device
+                else:
+                    dev = leaf.device
+                t = t.to(device=dev, dtype=leaf.dtype)
             if leaf.requires_grad:
                 t.requires_grad_(True)
             out.append(t)

@@ -84,7 +84,7 @@ class StepProgram:
     lists, tuples) of ``TensorSpec`` and plain values; ``device`` is
     where the step runs (``cuda`` unless the caller names the CPU).  The
     JAX program's ``in_shardings``, ``out_shardings`` and ``mesh`` wait
-    for the port's sharding (ROADMAP.md Queue 1 item 9)."""
+    for the production-mesh dry run (ROADMAP.md Queue 1 item 9b)."""
 
     name: str
     fn: Callable

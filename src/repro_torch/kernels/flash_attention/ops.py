@@ -15,7 +15,9 @@ its CUDA implementation builds and launches the kernel (alignment checks,
 the launch, the count); its fake implementation gives the output's shape,
 dtype and strides, so a dry run on fake tensors
 (``repro_torch.core.fidelity``) sees one op, costed by ``cost``, and
-launches nothing.
+launches nothing.  On DTensors it runs on each rank's local q, k and v,
+split over batch, or over heads where both head counts divide the mesh
+(``sharding``).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.kernels import refuse_autograd, register_op
 from repro_torch.kernels.flash_attention import kernel
@@ -143,12 +146,27 @@ def cost(q_shape, kv_shape, dtype: torch.dtype, causal: bool = True,
     return 4.0 * b * h * d * pairs, float(values * dtype.itemsize)
 
 
+def sharding(q, k, v, causal, window, prefix):
+    """DTensor layouts of one mesh dim: all replicated; q, k, v and the
+    output split over batch (each row's attention is its own); or over
+    heads, offered only where the mesh's size divides both head counts,
+    so that every local q head keeps its kv head (GQA) on any split."""
+    rest = [None, None, None]
+    out = [([Replicate()], [Replicate()] * 3 + rest),
+           ([Shard(0)], [Shard(0)] * 3 + rest)]
+    n = q.mesh.size()
+    if q.shape[2] % n == 0 and k.shape[2] % n == 0:
+        out.append(([Shard(2)], [Shard(2)] * 3 + rest))
+    return out
+
+
 OP = register_op("flash_attention",
                  "(Tensor q, Tensor k, Tensor v, bool causal, int window, "
                  "int prefix) -> Tensor",
                  _flash_attention_cuda, _flash_attention_fake,
                  lambda q, k, v, causal, window, prefix: cost(
-                     q.shape, k.shape, q.dtype, causal, window, prefix))
+                     q.shape, k.shape, q.dtype, causal, window, prefix),
+                 sharding)
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,

@@ -18,12 +18,15 @@ The launch is the custom op ``repro_torch::expert_mlp`` (``OP``): its
 CUDA implementation holds the alignment checks, the workspaces, the
 schedule and the count; its fake implementation gives the output's shape,
 dtype and strides, so a dry run on fake tensors sees one op, costed by
-``cost``, and launches nothing.
+``cost``, and launches nothing.  On DTensors it runs on each rank's
+local capacity blocks, split over groups (the weights replicated) or over
+experts (each rank's experts' weights), as ``sharding`` lists.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.kernels import refuse_autograd, register_op
 from repro_torch.kernels.moe_mlp import kernel
@@ -109,10 +112,20 @@ def cost(x_shape, w_shape, dtype: torch.dtype):
     return 6.0 * g * e * c * d * f, float(values * dtype.itemsize)
 
 
+def sharding(x, wi, wg, wo):
+    """DTensor layouts of one mesh dim: all replicated; x and the output
+    split over groups with the weights replicated; or over experts, x's
+    dim 1 with the weights' dim 0."""
+    r, s0, s1 = Replicate(), Shard(0), Shard(1)
+    return [([r], [r, r, r, r]), ([s0], [s0, r, r, r]),
+            ([s1], [s1, s0, s0, s0])]
+
+
 OP = register_op("expert_mlp",
                  "(Tensor x, Tensor wi, Tensor wg, Tensor wo) -> Tensor",
                  _expert_mlp_cuda, _expert_mlp_fake,
-                 lambda x, wi, wg, wo: cost(x.shape, wi.shape, x.dtype))
+                 lambda x, wi, wg, wo: cost(x.shape, wi.shape, x.dtype),
+                 sharding)
 
 
 def _launch_bf16(x, wi, wg, wo) -> torch.Tensor:

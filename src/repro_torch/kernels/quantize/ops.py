@@ -20,7 +20,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
-import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.kernels import register_op
 from repro_torch.kernels.quantize import kernel
@@ -83,19 +83,35 @@ def cost(shape, dtype: torch.dtype = torch.float32):
             float(n * dtype.itemsize + n + nb * torch.float32.itemsize))
 
 
+def sharding(x):
+    """DTensor layouts of one mesh dim: replicated, or x, q and the
+    scales split over rows (each row is quantized alone)."""
+    r, s0 = Replicate(), Shard(0)
+    return [([r, r], [r]), ([s0, s0], [s0])]
+
+
 OP = register_op("quantize_blocks",
                  "(Tensor x) -> (Tensor, Tensor)",
                  _quantize_cuda, _quantize_blocks_fake,
-                 lambda x: cost(x.shape, x.dtype))
+                 lambda x: cost(x.shape, x.dtype), sharding)
 
 
 def quantize(x: torch.Tensor, *, block: int = 256
              ) -> Tuple[torch.Tensor, torch.Tensor, int]:
-    """x: any shape -> (q (nb, block) int8, scales (nb,) f32, pad)."""
+    """x: any shape -> (q (nb, block) int8, scales (nb,) f32, pad).
+
+    The blocks run over x flattened in its global order: a DTensor is
+    replicated first (its shards' blocks would not line up with them),
+    and its rows are quantized where the op's sharding puts them."""
+    if isinstance(x, DTensor):
+        x = x.redistribute(x.device_mesh,
+                           [Replicate()] * x.device_mesh.ndim)
     flat = x.float().reshape(-1)
     pad = (-flat.numel()) % block
     if pad:
-        flat = F.pad(flat, (0, pad))
+        # zeros concatenated, not F.pad: DTensor's constant_pad_nd gives
+        # a spec of one placement on a 2-D mesh (torch 2.11)
+        flat = torch.cat([flat, flat.new_zeros(pad)])
     q, scales = quantize_blocks(flat.reshape(-1, block).contiguous())
     return q, scales, pad
 

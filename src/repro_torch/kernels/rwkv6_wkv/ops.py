@@ -21,7 +21,8 @@ The launch is the custom op ``repro_torch::wkv6`` (``OP``): its CUDA
 implementation holds the copies of unaligned views, the launch and the
 count; its fake implementation gives the outputs' shapes, dtypes and
 strides, so a dry run on fake tensors sees one op, costed by ``cost``,
-and launches nothing.
+and launches nothing.  On DTensors it runs on each rank's local batch
+rows or heads (``sharding``).
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.kernels import refuse_autograd, register_op
 from repro_torch.kernels.rwkv6_wkv import kernel
@@ -144,12 +146,25 @@ def cost(shape, dtype: torch.dtype, with_state: bool = False):
     return float(4 * n * n * b * s * h), float(nbytes)
 
 
+def sharding(r, k, v, lw, u, state0, chunk):
+    """DTensor layouts of one mesh dim: all replicated; split over batch
+    (r, k, v, lw, y dim 0 and both states' dim 0, u replicated); or over
+    heads (their dim 2, u's dim 0, the states' dim 1).  Each (row, head)
+    runs its recurrence alone."""
+    def one(seq, u_p, st):
+        return ([seq, st], [seq] * 4 + [u_p, st if state0 is not None
+                                        else None, None])
+    r_, s0 = Replicate(), Shard(0)
+    return [one(r_, r_, r_), one(s0, r_, s0), one(Shard(2), s0, Shard(1))]
+
+
 OP = register_op("wkv6",
                  "(Tensor r, Tensor k, Tensor v, Tensor lw, Tensor u, "
                  "Tensor? state0, int chunk) -> (Tensor, Tensor)",
                  _wkv6_cuda, _wkv6_fake,
                  lambda r, k, v, lw, u, state0, chunk: cost(
-                     r.shape, r.dtype, state0 is not None))
+                     r.shape, r.dtype, state0 is not None),
+                 sharding)
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,

@@ -19,6 +19,10 @@ modes:
   decode  -> one-token step: the self KV written IN PLACE, the cross
              cache only read
 
+``sharder`` lays the residual stream out by ("batch", "seq") where the
+JAX functions do: the encoder's input and each encoder layer's output,
+each decoder layer's output and the embedded tokens.
+
 On the card a prefill runs the flash kernel three ways: non-causal over
 the frames in the encoder, causal in the decoder's self attention, and
 non-causal over ``enc_seq`` keys in its cross attention.
@@ -33,9 +37,11 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as ll
-from repro_torch.models.common import (TensorSpec, cast, param, stack_inits,
+from repro_torch.models.common import (IDENTITY_SHARDER, Sharder,
+                                       TensorSpec, cast, param, stack_inits,
                                        zeros)
-from repro_torch.models.transformer import MODES, _unstack, kv_capacity
+from repro_torch.models.transformer import (MODES, _layer_views, _unstack,
+                                            kv_capacity)
 
 
 # ---------------------------------------------------------------------------
@@ -61,7 +67,8 @@ def _init_dec_layer(gen: torch.Generator, cfg) -> Dict:
 def init_encdec(gen: torch.Generator, cfg) -> Dict:
     return {
         "embed": ll.init_embedding(gen, cfg),
-        "enc_pos": param(gen, (cfg.enc_seq, cfg.d_model), scale=0.02),
+        "enc_pos": param(gen, (cfg.enc_seq, cfg.d_model), (None, "embed"),
+                         scale=0.02),
         "enc_layers": stack_inits(lambda g: _init_enc_layer(g, cfg), gen,
                                   cfg.enc_layers),
         "enc_norm": ll.init_norm(gen, cfg, cfg.d_model),
@@ -76,31 +83,34 @@ def init_encdec(gen: torch.Generator, cfg) -> Dict:
 # ---------------------------------------------------------------------------
 
 def _enc_layer(lp: Dict, x: torch.Tensor, cfg, positions, mode: str,
-               chunk: int) -> torch.Tensor:
+               chunk: int, sharder: Sharder) -> torch.Tensor:
     """One encoder layer.  Its k and v go to ``attention_train`` as
     ``kv``, as in JAX, so the frames attend each other with no mask."""
     h = ll.apply_norm(lp["norm1"], x, cfg)
     k = torch.einsum("bsd,dhk->bshk", h, lp["attn"]["wk"])
     v = torch.einsum("bsd,dhk->bshk", h, lp["attn"]["wv"])
     x = x + ll.attention_train(lp["attn"], h, cfg, positions, chunk=chunk,
-                               mode=mode, kv=(k, v, positions))
+                               mode=mode, kv=(k, v, positions),
+                               sharder=sharder)
     h2 = ll.apply_norm(lp["norm2"], x, cfg)
-    return x + ll.apply_mlp(lp["ffn"], h2, cfg)
+    x = x + ll.apply_mlp(lp["ffn"], h2, cfg, sharder)
+    return sharder.ac(x, ("batch", "seq", None))
 
 
 def encode(params: Dict, enc_embeds: torch.Tensor, cfg, mode: str = "prefill",
-           chunk: int = 2048) -> torch.Tensor:
+           chunk: int = 2048, sharder: Sharder = IDENTITY_SHARDER
+           ) -> torch.Tensor:
     """enc_embeds (b, enc_seq, d), the stub frontend's output, in the
     params' dtype -> the encoder output (b, enc_seq, d)."""
-    x = enc_embeds + params["enc_pos"]
+    x = sharder.ac(enc_embeds + params["enc_pos"], ("batch", "seq", None))
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     for lp in _unstack(params["enc_layers"], cfg.enc_layers):
         if mode == "train":
             x = checkpoint(_enc_layer, lp, x, cfg, positions, mode, chunk,
-                           use_reentrant=False)
+                           sharder, use_reentrant=False)
         else:
-            x = _enc_layer(lp, x, cfg, positions, mode, chunk)
+            x = _enc_layer(lp, x, cfg, positions, mode, chunk, sharder)
     return ll.apply_norm(params["enc_norm"], x, cfg)
 
 
@@ -138,20 +148,23 @@ def _decode_cross(lp: Dict, h: torch.Tensor, cfg, cross_cache: Dict
 
 
 def _dec_layer(lp: Dict, x: torch.Tensor, enc_out, cfg, positions,
-               mode: str, lc, cur_len, chunk: int, seq_capacity: int):
+               mode: str, lc, cur_len, chunk: int, seq_capacity: int,
+               sharder: Sharder):
     """One decoder layer -> (x, its cache entry: None in train mode)."""
     h = ll.apply_norm(lp["norm1"], x, cfg)
     new_self = None
     if mode == "decode":
         a, new_self = ll.attention_decode(lp["self_attn"], h, cfg,
-                                          lc["self"], cur_len)
+                                          lc["self"], cur_len, sharder)
     elif mode == "prefill":
         a, (kr, vr) = ll.attention_train(lp["self_attn"], h, cfg, positions,
-                                         chunk=chunk, return_kv=True)
-        new_self = ll.kv_to_cache(kr, vr, kv_capacity(cfg, seq_capacity))
+                                         chunk=chunk, return_kv=True,
+                                         sharder=sharder)
+        new_self = ll.kv_to_cache(kr, vr, kv_capacity(cfg, seq_capacity),
+                                  sharder)
     else:
         a = ll.attention_train(lp["self_attn"], h, cfg, positions,
-                               chunk=chunk, mode="train")
+                               chunk=chunk, mode="train", sharder=sharder)
     x = x + a
     hx = ll.apply_norm(lp["norm_x"], x, cfg)
     new_cross = None
@@ -163,13 +176,15 @@ def _dec_layer(lp: Dict, x: torch.Tensor, enc_out, cfg, positions,
         enc_pos = torch.arange(enc_out.shape[1], device=x.device).expand(
             enc_out.shape[:2])
         c = ll.attention_train(lp["cross_attn"], hx, cfg, positions,
-                               chunk=chunk, mode=mode, kv=(ck, cv, enc_pos))
+                               chunk=chunk, mode=mode, kv=(ck, cv, enc_pos),
+                               sharder=sharder)
         if mode == "prefill":
             new_cross = {"k": ck.transpose(1, 2).contiguous(),
                          "v": cv.transpose(1, 2).contiguous()}
     x = x + c
     h2 = ll.apply_norm(lp["norm2"], x, cfg)
-    x = x + ll.apply_mlp(lp["ffn"], h2, cfg)
+    x = sharder.ac(x + ll.apply_mlp(lp["ffn"], h2, cfg, sharder),
+                   ("batch", "seq", None))
     if mode == "train":
         return x, None
     return x, {"self": new_self, "cross": new_cross}
@@ -177,7 +192,8 @@ def _dec_layer(lp: Dict, x: torch.Tensor, enc_out, cfg, positions,
 
 def dec_forward(params: Dict, x: torch.Tensor, enc_out, cfg, positions,
                 mode: str, cache: Any = None, cur_len=None, chunk: int = 2048,
-                seq_capacity: int = 0) -> Tuple[torch.Tensor, Any]:
+                seq_capacity: int = 0, sharder: Sharder = IDENTITY_SHARDER
+                ) -> Tuple[torch.Tensor, Any]:
     """The decoder stack -> (x, cache).  The cache is ``{"self": {k, v},
     "cross": {k, v}}``, each leaf stacked over the layers: None in train
     mode, new in prefill, ``cache`` itself (written in place) in
@@ -185,16 +201,16 @@ def dec_forward(params: Dict, x: torch.Tensor, enc_out, cfg, positions,
     seq_capacity = seq_capacity or x.shape[1]
     n = cfg.n_layers
     layers = _unstack(params["dec_layers"], n)
-    caches = _unstack(cache, n) if mode == "decode" else [None] * n
+    caches = _layer_views(cache, n) if mode == "decode" else [None] * n
     new = []
     for lp, lc in zip(layers, caches):
         if mode == "train":
             x, _ = checkpoint(_dec_layer, lp, x, enc_out, cfg, positions,
-                              mode, None, None, chunk, seq_capacity,
+                              mode, None, None, chunk, seq_capacity, sharder,
                               use_reentrant=False)
         else:
             x, nc = _dec_layer(lp, x, enc_out, cfg, positions, mode, lc,
-                               cur_len, chunk, seq_capacity)
+                               cur_len, chunk, seq_capacity, sharder)
             new.append(nc)
     if mode == "train":
         return x, None
@@ -211,7 +227,8 @@ def dec_forward(params: Dict, x: torch.Tensor, enc_out, cfg, positions,
 def encdec_apply(params: Dict, batch: Dict, cfg, mode: str = "prefill",
                  cache: Any = None, cur_len=None, chunk: int = 2048,
                  seq_capacity: int = 0,
-                 compute_dtype: torch.dtype = torch.bfloat16
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 sharder: Sharder = IDENTITY_SHARDER
                  ) -> Tuple[torch.Tensor, Any, torch.Tensor]:
     """Returns (logits, cache, aux = 0), as ``lm_apply``.  A train or
     prefill batch holds ``tokens`` and ``enc_embeds``; a decode batch the
@@ -229,18 +246,19 @@ def encdec_apply(params: Dict, batch: Dict, cfg, mode: str = "prefill",
                                     device=dev).reshape(-1, 1).expand(b, 1)
     else:
         enc_out = encode(params, batch["enc_embeds"].to(compute_dtype), cfg,
-                         mode, chunk)
+                         mode, chunk, sharder)
         s = tokens.shape[1]
         positions = embed_pos = torch.arange(s, device=dev).expand(b, s)
     x = ll.embed_tokens(params["embed"], tokens, cfg, positions=embed_pos)
+    x = sharder.ac(x, ("batch", "seq", None))
     x, new_cache = dec_forward(params, x, enc_out, cfg, positions, mode,
                                cache=cache, cur_len=cur_len, chunk=chunk,
-                               seq_capacity=seq_capacity)
+                               seq_capacity=seq_capacity, sharder=sharder)
     if mode != "train":
         x = x[:, -1:]
     x = ll.apply_norm(params["final_norm"], x, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=dev)
-    return ll.unembed(params["embed"], x, cfg), new_cache, aux
+    return ll.unembed(params["embed"], x, cfg, sharder), new_cache, aux
 
 
 def encdec_cache_spec(cfg, batch: int, seq_len: int,

@@ -6,7 +6,10 @@ cross-entropy loss.
 
 Each function mirrors the one of the same name in
 ``repro.models.layers`` and keeps its layouts: activations
-``(b, s, h, hd)``, caches ``(b, kvh, S, hd)``.
+``(b, s, h, hd)``, caches ``(b, kvh, S, hd)``.  Every parameter carries
+the JAX leaf's logical axes, and every ``sharder.ac`` of the JAX function
+stands here at the same point with the same names (``sharder`` is the
+last argument, the identity by default).
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.models.common import param
+from repro_torch.models.common import IDENTITY_SHARDER, Sharder, param
 
 NEG_INF = -1e9
 
@@ -29,9 +32,9 @@ NEG_INF = -1e9
 # ---------------------------------------------------------------------------
 
 def init_norm(gen: torch.Generator, cfg, d: int) -> Dict:
-    p = {"scale": param(gen, (d,), init="ones")}
+    p = {"scale": param(gen, (d,), (None,), init="ones")}
     if cfg.norm == "layernorm":
-        p["bias"] = param(gen, (d,), init="zeros")
+        p["bias"] = param(gen, (d,), (None,), init="zeros")
     return p
 
 
@@ -113,14 +116,16 @@ def apply_rope(cfg, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
 def init_attention(gen: torch.Generator, cfg) -> Dict:
     d, hd = cfg.d_model, cfg.head_dim
     p = {
-        "wq": param(gen, (d, cfg.n_heads, hd)),
-        "wk": param(gen, (d, cfg.n_kv_heads, hd)),
-        "wv": param(gen, (d, cfg.n_kv_heads, hd)),
-        "wo": param(gen, (cfg.n_heads, hd, d)),
+        "wq": param(gen, (d, cfg.n_heads, hd), ("embed", "heads", None)),
+        "wk": param(gen, (d, cfg.n_kv_heads, hd),
+                    ("embed", "kv_heads", None)),
+        "wv": param(gen, (d, cfg.n_kv_heads, hd),
+                    ("embed", "kv_heads", None)),
+        "wo": param(gen, (cfg.n_heads, hd, d), ("heads", None, "embed")),
     }
     if cfg.qk_norm:
-        p["q_norm"] = param(gen, (hd,), init="ones")
-        p["k_norm"] = param(gen, (hd,), init="ones")
+        p["q_norm"] = param(gen, (hd,), (None,), init="ones")
+        p["k_norm"] = param(gen, (hd,), (None,), init="ones")
     return p
 
 
@@ -138,7 +143,8 @@ def _repeat_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
     return k.repeat_interleave(n_heads // kvh, dim=2)
 
 
-def qkv_project(p: Dict, x: torch.Tensor, cfg, positions: torch.Tensor):
+def qkv_project(p: Dict, x: torch.Tensor, cfg, positions: torch.Tensor,
+                sharder: Sharder = IDENTITY_SHARDER):
     """Returns q (b,s,h,hd), k/v (b,s,h,hd) (kv repeated), post-RoPE."""
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
@@ -148,7 +154,12 @@ def qkv_project(p: Dict, x: torch.Tensor, cfg, positions: torch.Tensor):
         k = _qk_norm(k, p["k_norm"], cfg.norm_eps)
     q = apply_rope(cfg, q, positions)
     k = apply_rope(cfg, k, positions)
-    return q, _repeat_kv(k, cfg.n_heads), _repeat_kv(v, cfg.n_heads)
+    k = _repeat_kv(k, cfg.n_heads)
+    v = _repeat_kv(v, cfg.n_heads)
+    q = sharder.ac(q, ("batch", None, "heads", None))
+    k = sharder.ac(k, ("batch", None, "heads", None))
+    v = sharder.ac(v, ("batch", None, "heads", None))
+    return q, k, v
 
 
 def _mask(scores, q_pos, kv_pos, window: int):
@@ -216,7 +227,8 @@ def blockwise_attention(q, k, v, q_pos, kv_pos, window: int = 0,
 def attention_train(p: Dict, x: torch.Tensor, cfg, positions: torch.Tensor,
                     chunk: int = 2048, return_kv: bool = False,
                     mode: str = "prefill", n_vis: int = 0,
-                    kv: Optional[Tuple] = None):
+                    kv: Optional[Tuple] = None,
+                    sharder: Sharder = IDENTITY_SHARDER):
     """Training/prefill attention with output projection.
 
     ``mode="train"`` is the JAX function on every device: the naive
@@ -239,6 +251,13 @@ def attention_train(p: Dict, x: torch.Tensor, cfg, positions: torch.Tensor,
     runs with ``causal=False`` over their ``s_kv`` keys; ``positions``
     then only turn q.  Unlike the JAX function's, these k and v are not
     repeated to the query heads: (b, s_kv, kvh, hd).
+
+    The JAX function's layout constraints stand at the same points: k and
+    v by their kv heads before the repeat, q by ("q_seq", "heads"), k and
+    v by the query heads after it (on the kernel path, which takes them
+    unrepeated, by the query heads as they are), and the attention output
+    by "seq" before the output projection.  The returned k and v are the
+    ones before any constraint, as JAX's ``kv_raw``.
     """
     if mode not in ("train", "prefill"):
         raise ValueError(f"attention_train has no mode {mode!r}")
@@ -253,31 +272,39 @@ def attention_train(p: Dict, x: torch.Tensor, cfg, positions: torch.Tensor,
         if cfg.qk_norm:
             k = _qk_norm(k, p["k_norm"], cfg.norm_eps)
         k = apply_rope(cfg, k, positions)
+        kv_raw = (k, v)
+        k = sharder.ac(k, ("batch", None, "kv_heads", None))
+        v = sharder.ac(v, ("batch", None, "kv_heads", None))
         kv_pos = q_pos
     else:
         k, v, kv_pos = kv
     cross = kv is not None
-    if mode == "train" or x.device.type == "cpu":
-        kr, vr = _repeat_kv(k, cfg.n_heads), _repeat_kv(v, cfg.n_heads)
-        if kr.shape[1] > chunk:
-            out = blockwise_attention(q, kr, vr, q_pos, kv_pos,
-                                      window=cfg.sliding_window, chunk=chunk,
-                                      cross=cross)
-        else:
-            out = naive_causal_attention(q, kr, vr, q_pos, kv_pos,
-                                         window=cfg.sliding_window,
-                                         cross=cross)
-    else:
+    plain = mode == "train" or x.device.type == "cpu"
+    if plain:
+        k, v = _repeat_kv(k, cfg.n_heads), _repeat_kv(v, cfg.n_heads)
+    q = sharder.ac(q, ("batch", "q_seq", "heads", None))
+    k = sharder.ac(k, ("batch", None, "heads", None))
+    v = sharder.ac(v, ("batch", None, "heads", None))
+    if not plain:
         out = flash_attention(q, k, v, causal=not cross,
                               window=0 if cross else cfg.sliding_window,
                               prefix=n_vis)
+    elif k.shape[1] > chunk:
+        out = blockwise_attention(q, k, v, q_pos, kv_pos,
+                                  window=cfg.sliding_window, chunk=chunk,
+                                  cross=cross)
+    else:
+        out = naive_causal_attention(q, k, v, q_pos, kv_pos,
+                                     window=cfg.sliding_window, cross=cross)
+    out = sharder.ac(out, ("batch", "seq", None, None))
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     if return_kv:
-        return y, (k, v)
+        return y, kv_raw
     return y
 
 
-def kv_to_cache(k: torch.Tensor, v: torch.Tensor, capacity: int) -> Dict:
+def kv_to_cache(k: torch.Tensor, v: torch.Tensor, capacity: int,
+                sharder: Sharder = IDENTITY_SHARDER) -> Dict:
     """Prefill KV (b, s, kvh, hd) -> ring-buffer cache (b, kvh, S, hd):
     token t occupies slot t % capacity, as ``attention_decode`` writes."""
     s = k.shape[1]
@@ -288,20 +315,27 @@ def kv_to_cache(k: torch.Tensor, v: torch.Tensor, capacity: int) -> Dict:
             k = torch.roll(k, shift, dims=1)
             v = torch.roll(v, shift, dims=1)
     elif s < capacity:
-        k = F.pad(k, (0, 0, 0, 0, 0, capacity - s))
-        v = F.pad(v, (0, 0, 0, 0, 0, capacity - s))
-    return {"k": k.transpose(1, 2).contiguous(),
-            "v": v.transpose(1, 2).contiguous()}
+        # zeros concatenated, not F.pad: DTensor's constant_pad_nd gives
+        # a spec of one placement on a 2-D mesh (torch 2.11)
+        zeros = k.new_zeros((k.shape[0], capacity - s) + tuple(k.shape[2:]))
+        k = torch.cat([k, zeros], dim=1)
+        v = torch.cat([v, zeros], dim=1)
+    axes = ("batch", "kv_heads_c", "kv_seq", None)
+    return {"k": sharder.ac(k.transpose(1, 2).contiguous(), axes),
+            "v": sharder.ac(v.transpose(1, 2).contiguous(), axes)}
 
 
 def attention_decode(p: Dict, x: torch.Tensor, cfg, cache: Dict,
-                     cur_len) -> Tuple[torch.Tensor, Dict]:
+                     cur_len, sharder: Sharder = IDENTITY_SHARDER
+                     ) -> Tuple[torch.Tensor, Dict]:
     """Single-token decode against a (ring-buffered) KV cache.
 
     x: (b, 1, d).  cache: {"k": (b, kvh, S, hd), "v": ...}.  cur_len: an
     int (uniform batch) or a (b,) int tensor (per-slot lengths).
     Unlike the JAX function, the new k/v are written into ``cache`` in
-    place (at slot ``cur_len % S``) and the same dict is returned.
+    place (at slot ``cur_len % S``, through ``sharder.write_kv_``, which
+    writes a distributed cache's local shards) and the same dict is
+    returned.
     """
     b = x.shape[0]
     hd = cfg.head_dim
@@ -322,17 +356,16 @@ def attention_decode(p: Dict, x: torch.Tensor, cfg, cache: Dict,
     q = apply_rope(cfg, q, pos_now)
     k_new = apply_rope(cfg, k_new, pos_now)
     knc, vnc = k_new[:, 0], v_new[:, 0]                 # (b, kvh, hd)
-    rows = torch.arange(b, device=x.device)
     slot = cur_len % S                                  # ring buffer
     ck, cv = cache["k"], cache["v"]
-    ck[rows, :, slot] = knc.to(ck.dtype)
-    cv[rows, :, slot] = vnc.to(cv.dtype)
+    sharder.write_kv_(ck, cv, slot, knc.to(ck.dtype), vnc.to(cv.dtype))
     if ck.dtype != x.dtype:
         # the JAX function attends over the cache promoted to the compute
         # dtype, with this step's k/v not yet rounded to the cache dtype
         ck, cv = ck.to(x.dtype), cv.to(x.dtype)
-        ck[rows, :, slot] = knc
-        cv[rows, :, slot] = vnc
+        sharder.write_kv_(ck, cv, slot, knc, vnc)
+    ck = sharder.ac(ck, ("batch", "kv_heads_c", "kv_seq", None))
+    cv = sharder.ac(cv, ("batch", "kv_heads_c", "kv_seq", None))
 
     kvh = cfg.n_kv_heads
     g = cfg.n_heads // kvh
@@ -357,13 +390,15 @@ def attention_decode(p: Dict, x: torch.Tensor, cfg, cache: Dict,
 
 def init_mlp(gen: torch.Generator, cfg, d_ff: Optional[int] = None) -> Dict:
     d, f = cfg.d_model, d_ff or cfg.d_ff
-    p = {"wi": param(gen, (d, f)), "wo": param(gen, (f, d))}
+    p = {"wi": param(gen, (d, f), ("embed", "mlp")),
+         "wo": param(gen, (f, d), ("mlp", "embed"))}
     if cfg.act == "swiglu":
-        p["wg"] = param(gen, (d, f))
+        p["wg"] = param(gen, (d, f), ("embed", "mlp"))
     return p
 
 
-def apply_mlp(p: Dict, x: torch.Tensor, cfg) -> torch.Tensor:
+def apply_mlp(p: Dict, x: torch.Tensor, cfg,
+              sharder: Sharder = IDENTITY_SHARDER) -> torch.Tensor:
     h = torch.einsum("bsd,df->bsf", x, p["wi"])
     if cfg.act == "swiglu":
         g = torch.einsum("bsd,df->bsf", x, p["wg"])
@@ -372,6 +407,7 @@ def apply_mlp(p: Dict, x: torch.Tensor, cfg) -> torch.Tensor:
         h = torch.square(F.relu(h))
     else:
         h = _gelu_tanh(h)
+    h = sharder.ac(h, ("batch", None, "mlp"))
     return torch.einsum("bsf,fd->bsd", h, p["wo"])
 
 
@@ -407,12 +443,12 @@ def init_embedding(gen: torch.Generator, cfg) -> Dict:
     (whisper's decoder) a ``pos_table`` of 8192 rows, or ``enc_seq`` if
     more, as in JAX."""
     vp = padded_vocab(cfg)
-    p = {"table": param(gen, (vp, cfg.d_model), scale=1.0)}
+    p = {"table": param(gen, (vp, cfg.d_model), (None, "embed"), scale=1.0)}
     if not cfg.tie_embeddings:
-        p["head"] = param(gen, (cfg.d_model, vp))
+        p["head"] = param(gen, (cfg.d_model, vp), ("embed", "vocab"))
     if cfg.pos_scheme == "learned":
         p["pos_table"] = param(gen, (max(8192, cfg.enc_seq), cfg.d_model),
-                               scale=0.02)
+                               (None, "embed"), scale=0.02)
     return p
 
 
@@ -428,10 +464,13 @@ def embed_tokens(p: Dict, tokens: torch.Tensor, cfg,
     return x
 
 
-def unembed(p: Dict, x: torch.Tensor, cfg) -> torch.Tensor:
+def unembed(p: Dict, x: torch.Tensor, cfg,
+            sharder: Sharder = IDENTITY_SHARDER) -> torch.Tensor:
     if cfg.tie_embeddings:
-        return torch.einsum("bsd,vd->bsv", x, p["table"])
-    return torch.einsum("bsd,dv->bsv", x, p["head"])
+        logits = torch.einsum("bsd,vd->bsv", x, p["table"])
+    else:
+        logits = torch.einsum("bsd,dv->bsv", x, p["head"])
+    return sharder.ac(logits, ("batch", None, "vocab"))
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, cfg,
@@ -443,9 +482,10 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, cfg,
     if vp != cfg.vocab_size:
         pad_mask = torch.arange(vp, device=logits.device) < cfg.vocab_size
         logits = torch.where(pad_mask, logits, NEG_INF)
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    nll = lse - ll
+    # the difference is taken before the label dim is dropped: on logits
+    # split over the vocab, DTensor sums the gathered shards at this shape
+    lse = torch.logsumexp(logits, dim=-1, keepdim=True)
+    nll = (lse - torch.gather(logits, -1, labels.long()[..., None]))[..., 0]
     if mask is None:
         return nll.mean()
     mask = mask.float()

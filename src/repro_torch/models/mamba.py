@@ -29,7 +29,8 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.common import param
+from repro_torch.models.common import (IDENTITY_SHARDER, Sharder, param,
+                                       with_axes)
 from repro_torch.models.layers import _silu
 
 
@@ -46,15 +47,15 @@ def init_mamba_block(gen: Optional[torch.Generator], cfg) -> Dict:
     a_log = torch.log(torch.arange(1, n + 1, dtype=torch.float32,
                                    device=dev)).expand(di, n).clone()
     return {
-        "in_proj": param(gen, (d, 2 * di)),
-        "conv_w": param(gen, (cfg.d_conv, di), scale=0.5),
-        "conv_b": param(gen, (di,), init="zeros"),
-        "x_proj": param(gen, (di, r + 2 * n)),
-        "dt_proj": param(gen, (r, di), scale=0.1),
-        "dt_bias": param(gen, (di,), init="zeros"),
-        "A_log": a_log,
-        "D": param(gen, (di,), init="ones"),
-        "out_proj": param(gen, (di, d)),
+        "in_proj": param(gen, (d, 2 * di), ("embed", "mlp")),
+        "conv_w": param(gen, (cfg.d_conv, di), (None, "mlp"), scale=0.5),
+        "conv_b": param(gen, (di,), ("mlp",), init="zeros"),
+        "x_proj": param(gen, (di, r + 2 * n), ("mlp", None)),
+        "dt_proj": param(gen, (r, di), (None, "mlp"), scale=0.1),
+        "dt_bias": param(gen, (di,), ("mlp",), init="zeros"),
+        "A_log": with_axes(a_log, ("mlp", None)),
+        "D": param(gen, (di,), ("mlp",), init="ones"),
+        "out_proj": param(gen, (di, d), ("mlp", "embed")),
     }
 
 
@@ -156,12 +157,15 @@ def selective_scan_chunked(p: Dict, xc: torch.Tensor, cfg,
 def apply_mamba(p: Dict, x: torch.Tensor, cfg,
                 conv_state: Optional[torch.Tensor] = None,
                 ssm_state: Optional[torch.Tensor] = None, chunk: int = 256,
-                remat: bool = True
+                remat: bool = True, sharder: Sharder = IDENTITY_SHARDER
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: (b, s, d) -> (out, new_conv_state, new_ssm_state).  A one-token
     input with a carried ssm state takes the single-step recurrence;
-    anything else (a one-token prefill too) the chunked scan."""
+    anything else (a one-token prefill too) the chunked scan.  The JAX
+    block's constraints: xz by "mlp", and y by "seq" before the output
+    projection when there is more than one token."""
     xz = torch.einsum("bsd,de->bse", x, p["in_proj"])
+    xz = sharder.ac(xz, ("batch", None, "mlp"))
     xin, z = xz.chunk(2, dim=-1)
     xc, new_conv = _causal_conv(p, xin, conv_state)
     xc = _silu(xc)
@@ -177,5 +181,7 @@ def apply_mamba(p: Dict, x: torch.Tensor, cfg,
 
     y = y + p["D"].float() * xc.float()
     y = y.to(x.dtype) * _silu(z)
+    if x.shape[1] > 1:
+        y = sharder.ac(y, ("batch", "seq", None))
     out = torch.einsum("bsd,de->bse", y, p["out_proj"])
     return out, new_conv, new_ssm

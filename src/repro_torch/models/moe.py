@@ -5,7 +5,10 @@ Mirrors ``repro.models.moe``: groups are batch rows (subdivided so that
 a group never exceeds ``MAX_GROUP_TOKENS``), capacity
 ``C = min(ceil(top_k T capacity_factor / E), T top_k)`` per group, slots
 beyond C drop, and the Switch-style aux loss is returned beside y.  The
-JAX package's sharding annotations have no counterpart here.
+JAX package's layout constraints stand at the same points (``sharder``):
+the routing metadata by batch alone, the capacity blocks by batch, h by
+"mlp" on the einsum path (the kernel never materialises h) and the
+expert outputs by "moe_d".
 
 Three orderings follow JAX exactly, or the slot assignment diverges
 whenever capacity overflows or router probabilities tie:
@@ -14,6 +17,12 @@ whenever capacity overflows or router probabilities tie:
   a stable descending sort, first k;
 * ``jnp.argsort`` is stable: ``torch.argsort(..., stable=True)``;
 * expert segments are found with ``searchsorted`` side left and right.
+
+DTensor has no sharding strategy for ``searchsorted``; this module
+registers one (``_searchsorted_sharding``): the sorted rows and the
+values split alike over any leading (batch) dim, or both replicated.
+The routing metadata is laid out by batch alone, so each group's search
+runs where its group lives, as in JAX.
 
 In prefill and decode, with a SwiGLU activation, the expert compute
 goes through ``expert_mlp`` on every device: the hand-written kernel on
@@ -31,23 +40,36 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor.experimental import register_sharding
 
 from repro_torch.kernels.moe_mlp.ops import expert_mlp
-from repro_torch.models.common import param
+from repro_torch.models.common import IDENTITY_SHARDER, Sharder, param
 from repro_torch.models.layers import _gelu_tanh, _silu
 
 MAX_GROUP_TOKENS = 4096
 
 
+@register_sharding(torch.ops.aten.searchsorted.Tensor)
+def _searchsorted_sharding(sorted_sequence, values, **kwargs):
+    """One mesh dim's layouts of ``searchsorted(sorted, values)``: all
+    replicated, or every operand split on the same leading dim (each row
+    is searched alone; the last dim, the one searched, is never split)."""
+    out = [([Replicate()], [Replicate(), Replicate()])]
+    for d in range(sorted_sequence.ndim - 1):
+        out.append(([Shard(d)], [Shard(d), Shard(d)]))
+    return out
+
+
 def init_moe(gen: torch.Generator, cfg) -> Dict:
     d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
     p = {
-        "router": param(gen, (d, e), scale=0.02),
-        "wi": param(gen, (e, d, f)),
-        "wo": param(gen, (e, f, d)),
+        "router": param(gen, (d, e), ("embed", None), scale=0.02),
+        "wi": param(gen, (e, d, f), ("experts", "embed", "mlp")),
+        "wo": param(gen, (e, f, d), ("experts", "mlp", "embed")),
     }
     if cfg.act == "swiglu":
-        p["wg"] = param(gen, (e, d, f))
+        p["wg"] = param(gen, (e, d, f), ("experts", "embed", "mlp"))
     return p
 
 
@@ -71,7 +93,8 @@ def load_balance_loss(probs: torch.Tensor, idx: torch.Tensor,
     return n_experts * torch.sum(f * P)
 
 
-def apply_moe(p: Dict, x: torch.Tensor, cfg, mode: str = "prefill"
+def apply_moe(p: Dict, x: torch.Tensor, cfg, mode: str = "prefill",
+              sharder: Sharder = IDENTITY_SHARDER
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (y (B, S, D), aux_loss scalar f32).  ``mode`` is
     the model's: "train" takes the einsum expert path."""
@@ -86,12 +109,14 @@ def apply_moe(p: Dict, x: torch.Tensor, cfg, mode: str = "prefill"
     dev = x.device
 
     logits = torch.einsum("gtd,de->gte", x, p["router"]).float()
+    logits = sharder.ac(logits, ("batch", None, None))
     probs = torch.softmax(logits, dim=-1)
     gates, eidx = route_topk(logits, K)                    # (G,T,K)
     aux = load_balance_loss(probs, eidx, E)
 
-    flat_e = eidx.reshape(G, TK)
+    flat_e = sharder.ac(eidx.reshape(G, TK), ("batch", None))
     sort_idx = torch.argsort(flat_e, dim=-1, stable=True)  # (G,TK)
+    sort_idx = sharder.ac(sort_idx, ("batch", None))
     sorted_e = torch.gather(flat_e, -1, sort_idx)
     experts = torch.arange(E, device=dev).expand(G, E).contiguous()
     # per-group start/end of each expert's segment in sorted order
@@ -103,10 +128,11 @@ def apply_moe(p: Dict, x: torch.Tensor, cfg, mode: str = "prefill"
     valid = pos < ends[:, :, None]                         # (G,E,C)
     pos_c = torch.clamp(pos, max=TK - 1).reshape(G, E * C)
     tok_src = torch.gather(sort_idx, -1, pos_c) // K       # (G,EC)
-    rows = torch.arange(G, device=dev)[:, None]
-    xin = x[rows, tok_src]                                 # (G,EC,D)
+    # token gathers as JAX's take_along_axis (torch.gather), not advanced
+    # indexing, which DTensor cannot propagate with group-split indices
+    xin = torch.gather(x, 1, tok_src[:, :, None].expand(G, E * C, D))
     xin = xin * valid.reshape(G, E * C, 1).to(x.dtype)
-    xin = xin.reshape(G, E, C, D)
+    xin = sharder.ac(xin.reshape(G, E, C, D), ("batch", None, None, None))
 
     # --- expert compute --------------------------------------------------
     if cfg.act == "swiglu" and mode != "train":
@@ -119,14 +145,17 @@ def apply_moe(p: Dict, x: torch.Tensor, cfg, mode: str = "prefill"
             h = torch.square(F.relu(h))
         else:
             h = _gelu_tanh(h)
+        h = sharder.ac(h, ("batch", None, None, "mlp"))
         out = torch.einsum("gecf,efd->gecd", h, p["wo"])
+    out = sharder.ac(out, ("batch", None, None, "moe_d"))
 
     # --- combine: gather each (token, k) slot's output, weight by gate --
     inv = torch.argsort(sort_idx, dim=-1, stable=True)     # (G,TK)
     c_of = inv - torch.gather(starts, -1, flat_e)          # (G,TK)
     within = (c_of >= 0) & (c_of < C)
     flat_slot = flat_e * C + torch.clamp(c_of, 0, C - 1)   # (G,TK)
-    per_k = out.reshape(G, E * C, D)[rows, flat_slot]      # (G,TK,D)
+    per_k = torch.gather(out.reshape(G, E * C, D), 1,
+                         flat_slot[:, :, None].expand(G, TK, D))  # (G,TK,D)
     per_k = per_k * within[:, :, None].to(x.dtype)
     per_k = per_k.reshape(G, T, K, D)
     y = torch.einsum("gtkd,gtk->gtd", per_k, gates.to(x.dtype))

@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.rwkv6_wkv.ops import wkv6_state
-from repro_torch.models.common import param
+from repro_torch.models.common import IDENTITY_SHARDER, Sharder, param
 from repro_torch.models.layers import _silu
 
 LORA_R = 32       # low-rank size of the data-dependent mix/decay MLPs
@@ -35,28 +35,31 @@ def init_rwkv_block(gen: Optional[torch.Generator], cfg) -> Dict:
     hs = cfg.rwkv_head_size
     h = d // hs
     tm = {
-        "mu_x": param(gen, (d,), init="zeros"),
-        "mu": param(gen, (MIX_KINDS, d), init="zeros"),
-        "lora_a": param(gen, (d, MIX_KINDS, LORA_R), scale=0.02),
-        "lora_b": param(gen, (MIX_KINDS, LORA_R, d), scale=0.02),
-        "wr": param(gen, (d, h, hs)),
-        "wk": param(gen, (d, h, hs)),
-        "wv": param(gen, (d, h, hs)),
-        "wg": param(gen, (d, h, hs)),
-        "wo": param(gen, (h, hs, d)),
-        "w0": param(gen, (h, hs), init="zeros"),
-        "w_lora_a": param(gen, (d, LORA_R), scale=0.02),
-        "w_lora_b": param(gen, (LORA_R, h, hs), scale=0.02),
-        "u": param(gen, (h, hs), init="zeros"),
-        "ln_x_scale": param(gen, (h, hs), init="ones"),
-        "ln_x_bias": param(gen, (h, hs), init="zeros"),
+        "mu_x": param(gen, (d,), (None,), init="zeros"),
+        "mu": param(gen, (MIX_KINDS, d), (None, None), init="zeros"),
+        "lora_a": param(gen, (d, MIX_KINDS, LORA_R), ("embed", None, None),
+                        scale=0.02),
+        "lora_b": param(gen, (MIX_KINDS, LORA_R, d), (None, None, None),
+                        scale=0.02),
+        "wr": param(gen, (d, h, hs), ("embed", "heads", None)),
+        "wk": param(gen, (d, h, hs), ("embed", "heads", None)),
+        "wv": param(gen, (d, h, hs), ("embed", "heads", None)),
+        "wg": param(gen, (d, h, hs), ("embed", "heads", None)),
+        "wo": param(gen, (h, hs, d), ("heads", None, "embed")),
+        "w0": param(gen, (h, hs), ("heads", None), init="zeros"),
+        "w_lora_a": param(gen, (d, LORA_R), ("embed", None), scale=0.02),
+        "w_lora_b": param(gen, (LORA_R, h, hs), (None, "heads", None),
+                          scale=0.02),
+        "u": param(gen, (h, hs), ("heads", None), init="zeros"),
+        "ln_x_scale": param(gen, (h, hs), ("heads", None), init="ones"),
+        "ln_x_bias": param(gen, (h, hs), ("heads", None), init="zeros"),
     }
     cm = {
-        "mu_k": param(gen, (d,), init="zeros"),
-        "mu_r": param(gen, (d,), init="zeros"),
-        "wk": param(gen, (d, cfg.d_ff)),
-        "wv": param(gen, (cfg.d_ff, d)),
-        "wr": param(gen, (d, d)),
+        "mu_k": param(gen, (d,), (None,), init="zeros"),
+        "mu_r": param(gen, (d,), (None,), init="zeros"),
+        "wk": param(gen, (d, cfg.d_ff), ("embed", "mlp")),
+        "wv": param(gen, (cfg.d_ff, d), ("mlp", "embed")),
+        "wr": param(gen, (d, d), ("embed", None)),
     }
     return {"time_mix": tm, "channel_mix": cm}
 
@@ -173,9 +176,11 @@ def _head_groupnorm(tm: Dict, y: torch.Tensor, eps: float = 64e-5
 def apply_time_mix(tm: Dict, x: torch.Tensor, cfg,
                    shift_state: Optional[torch.Tensor] = None,
                    wkv_state: Optional[torch.Tensor] = None,
-                   chunk: int = 32, mode: str = "prefill"
+                   chunk: int = 32, mode: str = "prefill",
+                   sharder: Sharder = IDENTITY_SHARDER
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Returns (out, new_shift_state, new_wkv_state)."""
+    """Returns (out, new_shift_state, new_wkv_state); r, k and v are
+    laid out by heads before the recurrence, as in JAX."""
     xx = _token_shift(x, shift_state)
     xr, xk, xv, xg, xw = _ddlerp(tm, x, xx)
     r = torch.einsum("bsd,dhn->bshn", xr, tm["wr"])
@@ -185,6 +190,9 @@ def apply_time_mix(tm: Dict, x: torch.Tensor, cfg,
     wdel = torch.einsum("bsd,dr->bsr", xw, tm["w_lora_a"])
     wdel = torch.einsum("bsr,rhn->bshn", torch.tanh(wdel), tm["w_lora_b"])
     lw = -torch.exp(tm["w0"][None, None].float() + wdel.float())  # < 0
+    r = sharder.ac(r, ("batch", None, "heads", None))
+    k = sharder.ac(k, ("batch", None, "heads", None))
+    v = sharder.ac(v, ("batch", None, "heads", None))
     if x.shape[1] == 1 and wkv_state is not None:
         y, new_state = wkv6_step(r, k, v, lw, tm["u"], wkv_state)
     else:

@@ -22,7 +22,11 @@ Three modes:
   prefill -> logits at the last position + a stacked cache (KV, the
              RWKV states, or per position KV or the Mamba conv and ssm
              states)
-  decode  -> one-token step that updates the stacked cache IN PLACE
+  decode  -> one-token step that updates the stacked cache IN PLACE,
+             through per-layer views of the stacked leaves
+
+``sharder`` lays the residual stream out by ("batch", "seq") where the
+JAX functions do: after each mixer and each FFN, and after the embedding.
 
 The audio family (whisper's encoder-decoder) is ``models/encdec.py``.
 """
@@ -33,13 +37,15 @@ import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as ll
 from repro_torch.models import mamba as mm
 from repro_torch.models import moe as me
 from repro_torch.models import rwkv as rw
-from repro_torch.models.common import TensorSpec, cast, stack_inits, zeros
+from repro_torch.models.common import (IDENTITY_SHARDER, Sharder,
+                                       TensorSpec, cast, stack_inits, zeros)
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 MODES = ("train", "prefill", "decode")
@@ -188,7 +194,8 @@ def make_positions(cfg, b: int, s: int, device: torch.device,
 
 def apply_layer(p: Dict, x: torch.Tensor, cfg, layer_idx: int, positions,
                 mode: str, cache: Optional[Dict], cur_len, chunk: int,
-                seq_capacity: int, n_vis: int = 0
+                seq_capacity: int, n_vis: int = 0,
+                sharder: Sharder = IDENTITY_SHARDER
                 ) -> Tuple[torch.Tensor, Optional[Dict],
                            Optional[torch.Tensor]]:
     """Returns (x, new_cache_entry, aux_loss); the cache entry is None in
@@ -198,7 +205,7 @@ def apply_layer(p: Dict, x: torch.Tensor, cfg, layer_idx: int, positions,
     the vision tokens in front of the sequence (``attention_train``)."""
     kind = layer_kind(cfg, layer_idx)
     if kind == "rwkv":
-        return _apply_rwkv_layer(p, x, cfg, mode, cache)
+        return _apply_rwkv_layer(p, x, cfg, mode, cache, sharder)
     rs = cfg.residual_scale
     h = ll.apply_norm(p["norm1"], x, cfg)
     new_cache = None
@@ -206,29 +213,30 @@ def apply_layer(p: Dict, x: torch.Tensor, cfg, layer_idx: int, positions,
         st = cache or {}
         mix, conv, ssm = mm.apply_mamba(
             p["mixer"], h, cfg, conv_state=st.get("conv"),
-            ssm_state=st.get("ssm"), remat=(mode == "train"))
+            ssm_state=st.get("ssm"), remat=(mode == "train"),
+            sharder=sharder)
         if mode != "train":
             new_cache = _update(cache, {"conv": conv, "ssm": ssm}, mode)
     elif mode == "decode":
         mix, new_cache = ll.attention_decode(p["mixer"], h, cfg, cache,
-                                             cur_len)
+                                             cur_len, sharder)
     elif mode == "prefill":
         mix, (k_raw, v_raw) = ll.attention_train(
             p["mixer"], h, cfg, positions, chunk=chunk, return_kv=True,
-            n_vis=n_vis)
+            n_vis=n_vis, sharder=sharder)
         new_cache = ll.kv_to_cache(k_raw, v_raw,
-                                   kv_capacity(cfg, seq_capacity))
+                                   kv_capacity(cfg, seq_capacity), sharder)
     else:
         mix = ll.attention_train(p["mixer"], h, cfg, positions, chunk=chunk,
-                                 mode="train", n_vis=n_vis)
-    x = x + rs * mix
+                                 mode="train", n_vis=n_vis, sharder=sharder)
+    x = sharder.ac(x + rs * mix, ("batch", "seq", None))
     h2 = ll.apply_norm(p["norm2"], x, cfg)
     aux = None
     if cfg.is_moe_layer(layer_idx):
-        f, aux = me.apply_moe(p["ffn"], h2, cfg, mode=mode)
+        f, aux = me.apply_moe(p["ffn"], h2, cfg, mode=mode, sharder=sharder)
     else:
-        f = ll.apply_mlp(p["ffn"], h2, cfg)
-    x = x + rs * f
+        f = ll.apply_mlp(p["ffn"], h2, cfg, sharder)
+    x = sharder.ac(x + rs * f, ("batch", "seq", None))
     return x, new_cache, aux
 
 
@@ -245,7 +253,7 @@ def _update(cache: Optional[Dict], new: Dict, mode: str) -> Dict:
 
 
 def _apply_rwkv_layer(p: Dict, x: torch.Tensor, cfg, mode: str,
-                      cache: Optional[Dict]
+                      cache: Optional[Dict], sharder: Sharder
                       ) -> Tuple[torch.Tensor, Optional[Dict], None]:
     """An RWKV layer; its states as ``_update`` keeps them.  The time
     mix runs at its own chunk (32), not the decoder's, as in JAX."""
@@ -254,12 +262,12 @@ def _apply_rwkv_layer(p: Dict, x: torch.Tensor, cfg, mode: str,
     h = ll.apply_norm(p["norm1"], x, cfg)
     mix, shift_tm, wkv = rw.apply_time_mix(
         p["mixer"], h, cfg, shift_state=st.get("shift_tm"),
-        wkv_state=st.get("wkv"), mode=mode)
-    x = x + rs * mix
+        wkv_state=st.get("wkv"), mode=mode, sharder=sharder)
+    x = sharder.ac(x + rs * mix, ("batch", "seq", None))
     h2 = ll.apply_norm(p["norm2"], x, cfg)
     f, shift_cm = rw.apply_channel_mix(p["ffn"], h2, cfg,
                                        shift_state=st.get("shift_cm"))
-    x = x + rs * f
+    x = sharder.ac(x + rs * f, ("batch", "seq", None))
     if mode == "train":
         return x, None, None
     return x, _update(cache, {"shift_tm": shift_tm, "shift_cm": shift_cm,
@@ -267,19 +275,32 @@ def _apply_rwkv_layer(p: Dict, x: torch.Tensor, cfg, mode: str,
 
 
 def _unstack(tree: Dict, n: int) -> List[Dict]:
-    """The per-layer trees of a stacked tree, as views (a decode step
-    writes its cache entries through them).  Each leaf is split by one
-    ``unbind``, whose backward stacks the layers' gradients in one op
-    (indexing layer by layer would add a full-size zero gradient per
-    layer and leaf)."""
+    """The per-layer trees of a stacked parameter tree, as views.  Each
+    leaf is split by one ``unbind``, whose backward stacks the layers'
+    gradients in one op (indexing layer by layer would add a full-size
+    zero gradient per layer and leaf)."""
     split = {k: _unstack(v, n) if isinstance(v, dict) else v.unbind(0)
+             for k, v in tree.items()}
+    return [{k: v[i] for k, v in split.items()} for i in range(n)]
+
+
+def _layer_views(tree: Dict, n: int) -> List[Dict]:
+    """The per-layer trees of a stacked cache, as views a decode step
+    writes its entries through in place: a plain leaf split by one
+    ``unbind``, as ``_unstack`` does, a DTensor leaf indexed layer by
+    layer (DTensor refuses an in-place write into an ``unbind``
+    output)."""
+    split = {k: _layer_views(v, n) if isinstance(v, dict)
+             else [v[i] for i in range(n)] if isinstance(v, DTensor)
+             else v.unbind(0)
              for k, v in tree.items()}
     return [{k: v[i] for k, v in split.items()} for i in range(n)]
 
 
 def decoder_forward(layers_params, x: torch.Tensor, cfg, positions,
                     mode: str, cache=None, cur_len=None, chunk: int = 2048,
-                    seq_capacity: int = 0, n_vis: int = 0
+                    seq_capacity: int = 0, n_vis: int = 0,
+                    sharder: Sharder = IDENTITY_SHARDER
                     ) -> Tuple[torch.Tensor, Any, torch.Tensor]:
     """Run the decoder stack -> (x, cache, aux_loss summed over layers).
     Train returns no cache; prefill returns a new stacked cache in the
@@ -294,8 +315,8 @@ def decoder_forward(layers_params, x: torch.Tensor, cfg, positions,
     stacks = layers_params if hybrid else (layers_params,)
     per_layer = [_unstack(t, n_steps) for t in stacks]
     if mode == "decode":
-        caches = [_unstack(c, n_steps) for c in (cache if hybrid
-                                                 else (cache,))]
+        caches = [_layer_views(c, n_steps) for c in (cache if hybrid
+                                                     else (cache,))]
     else:
         caches = [[None] * n_steps] * n_pos
     new: List[List[Optional[Dict]]] = [[] for _ in range(n_pos)]
@@ -306,11 +327,12 @@ def decoder_forward(layers_params, x: torch.Tensor, cfg, positions,
             if mode == "train":
                 x, nc, a = checkpoint(apply_layer, lp, x, cfg, pos,
                                       positions, mode, None, None, chunk,
-                                      seq_capacity, n_vis,
+                                      seq_capacity, n_vis, sharder,
                                       use_reentrant=False)
             else:
                 x, nc, a = apply_layer(lp, x, cfg, pos, positions, mode, lc,
-                                       cur_len, chunk, seq_capacity, n_vis)
+                                       cur_len, chunk, seq_capacity, n_vis,
+                                       sharder)
             if a is not None:
                 aux = aux + a
             new[pos].append(nc)
@@ -330,7 +352,8 @@ def decoder_forward(layers_params, x: torch.Tensor, cfg, positions,
 def lm_apply(params: Dict, batch: Dict, cfg, mode: str = "prefill",
              cache=None, cur_len=None, chunk: int = 2048,
              seq_capacity: int = 0,
-             compute_dtype: torch.dtype = torch.bfloat16
+             compute_dtype: torch.dtype = torch.bfloat16,
+             sharder: Sharder = IDENTITY_SHARDER
              ) -> Tuple[torch.Tensor, Any, torch.Tensor]:
     """Unified LM entry.  Returns (logits, new_cache, aux_loss):
 
@@ -365,11 +388,12 @@ def lm_apply(params: Dict, batch: Dict, cfg, mode: str = "prefill",
     positions = None
     if mode != "decode":
         positions = make_positions(cfg, b, s, tokens.device, n_vis=n_vis)
+    x = sharder.ac(x, ("batch", "seq", None))
     x, new_cache, aux = decoder_forward(
         params["layers"], x, cfg, positions, mode=mode, cache=cache,
         cur_len=cur_len, chunk=chunk, seq_capacity=seq_capacity,
-        n_vis=n_vis)
+        n_vis=n_vis, sharder=sharder)
     if mode != "train":
         x = x[:, -1:]
     x = ll.apply_norm(params["final_norm"], x, cfg)
-    return ll.unembed(params["embed"], x, cfg), new_cache, aux
+    return ll.unembed(params["embed"], x, cfg, sharder), new_cache, aux

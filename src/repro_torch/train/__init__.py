@@ -10,5 +10,5 @@ from repro_torch.train.ft_policy import (  # noqa: F401 (pure)
     checkpoint_due, daly_interval, young_interval)
 from repro_torch.train.step import (  # noqa: F401
     TrainOptions, batch_to, build_train_step, default_options_for,
-    init_train_state, lr_at)
+    init_train_state, lr_at, train_state_specs)
 from repro_torch.train.trainer import SimulatedFailure, Trainer  # noqa: F401

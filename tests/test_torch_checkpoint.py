@@ -208,11 +208,32 @@ def test_restore_into_specs_places_and_marks_grad(tmp_path):
 
 
 def test_restore_with_shardings_names_the_roadmap_item(tmp_path):
+    """``restore(shardings=...)`` places leaves on a mesh (ROADMAP Queue 1
+    item 9a): a tree of tensors in place of ``NamedSharding``s is
+    refused by name; on a one-rank gloo mesh each leaf comes back a
+    DTensor equal to the plain restore bit for bit (the multi-rank
+    reshardings are in ``tests/test_torch_mesh_gloo.py``)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.dist.sharding import NamedSharding
+    from repro_torch.launch.mesh import make_mesh
+    from torch.distributed.tensor import Replicate
     mgr = CheckpointManager(str(tmp_path), async_save=False)
     st_ = state_tree()
     mgr.save(st_, 1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(TypeError, match="NamedSharding"):
         mgr.restore(st_, shardings=st_)
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cpu")
+        shard = NamedSharding(mesh, (Replicate(), Replicate()))
+        got = mgr.restore(st_, shardings=map_leaves(lambda _: shard, st_))
+        for a, b in zip(leaves(got), leaves(st_)):
+            assert isinstance(a, DTensor)
+            assert torch.equal(a.full_tensor(), b)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_restore_refuses_a_wrong_shape(tmp_path):

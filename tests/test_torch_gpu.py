@@ -670,3 +670,107 @@ def test_dry_run_on_the_card_launches_and_allocates_nothing(card):
         assert [c.launches for c in counts] == n0
         assert rep.detail["kernels"] == want
         assert rep.flops > 0 and rep.bytes_accessed > 0
+
+
+# ---------------------------------------------------------------------------
+# The ops on DTensors (repro_torch.dist.sharding): a (1, 1) mesh on the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def mesh11():
+    """A world-1 NCCL process group (an in-memory store) and the
+    ("data", "model") (1, 1) mesh; destroyed after the module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import single_device_mesh
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    yield single_device_mesh()
+    dist.destroy_process_group()
+
+
+def _on_mesh(mesh, placements, *ts):
+    from torch.distributed.tensor import distribute_tensor
+    return [distribute_tensor(t, mesh, pl) for t, pl in zip(ts, placements)]
+
+
+def _dtensor_case(wrapper, call, plain_args, dist_args, want_placements):
+    """``call`` on DTensors launches the kernel once, on the local shards,
+    keeps the sharded layout, and equals the call on plain tensors bit
+    for bit (a (1, 1) mesh: each shard is the whole tensor)."""
+    want = call(*plain_args)
+    n0 = wrapper.launches
+    got = call(*dist_args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == n0 + 1
+    want = want if isinstance(want, tuple) else (want,)
+    got = got if isinstance(got, tuple) else (got,)
+    for g, w, pl in zip(got, want, want_placements):
+        assert tuple(g.placements) == pl
+        assert g.to_local().shape == w.shape
+        a, b = g.full_tensor(), w
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["replicated", "batch", "heads", "both"])
+def test_flash_attention_on_dtensors(card, mesh11, layout):
+    from torch.distributed.tensor import Replicate, Shard
+    pl = {"replicated": (Replicate(), Replicate()),
+          "batch": (Shard(0), Replicate()), "heads": (Replicate(), Shard(2)),
+          "both": (Shard(0), Shard(2))}[layout]
+    g = torch.Generator(device=card).manual_seed(0)
+    q = torch.randn(2, 300, 8, 64, generator=g, device=card).bfloat16()
+    k, v = (torch.randn(2, 300, 2, 64, generator=g, device=card).bfloat16()
+            for _ in range(2))
+    _dtensor_case(ops.flash_attention, ops.flash_attention, (q, k, v),
+                  _on_mesh(mesh11, [pl] * 3, q, k, v), [pl])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["groups", "experts"])
+def test_moe_mlp_on_dtensors(card, mesh11, layout):
+    from torch.distributed.tensor import Replicate, Shard
+    r = (Replicate(), Replicate())
+    x_pl, w_pl = {"groups": ((Shard(0), Replicate()), r),
+                  "experts": ((Replicate(), Shard(1)),
+                              (Replicate(), Shard(0)))}[layout]
+    args = _moe_inputs(card, 2, 4, 40, 256, 512, torch.bfloat16)
+    _dtensor_case(moe_ops.expert_mlp, moe_ops.expert_mlp, args,
+                  _on_mesh(mesh11, [x_pl] + [w_pl] * 3, *args), [x_pl])
+
+
+@pytest.mark.gpu
+def test_quantize_on_dtensors(card, mesh11):
+    from torch.distributed.tensor import Replicate, Shard
+    pl = (Shard(0), Replicate())
+    x = torch.randn(1000, 256, generator=torch.Generator(device=card)
+                    .manual_seed(0), device=card)
+    _dtensor_case(q_ops.quantize, q_ops.quantize_blocks, (x,),
+                  _on_mesh(mesh11, [pl], x), [pl, pl])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["batch", "heads"])
+def test_wkv6_on_dtensors(card, mesh11, layout):
+    from torch.distributed.tensor import Replicate, Shard
+    r = (Replicate(), Replicate())
+    seq, u_pl, st = {"batch": ((Shard(0), Replicate()), r,
+                               (Shard(0), Replicate())),
+                     "heads": ((Replicate(), Shard(2)),
+                               (Replicate(), Shard(0)),
+                               (Replicate(), Shard(1)))}[layout]
+    g = torch.Generator(device=card).manual_seed(0)
+    b, s, h, n = 2, 100, 4, 64
+    r_, k, v = (torch.randn(b, s, h, n, generator=g, device=card).bfloat16()
+                for _ in range(3))
+    lw = -torch.rand(b, s, h, n, generator=g, device=card)
+    u = torch.randn(h, n, generator=g, device=card)
+    s0 = torch.randn(b, h, n, n, generator=g, device=card)
+    args = (r_, k, v, lw, u, s0)
+    _dtensor_case(wkv_ops.wkv6, wkv_ops.wkv6_state, args,
+                  _on_mesh(mesh11, [seq] * 4 + [u_pl, st], *args), [seq, st])

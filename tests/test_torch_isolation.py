@@ -283,3 +283,44 @@ def test_trainer_on_the_default_device_raises_without_a_card(tmp_path):
     mgr.save({"w": torch.ones(2)}, 1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mgr.restore({"w": TensorSpec((2,), torch.float32)})
+
+
+MESH_BLOCKED = r"""
+import sys
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+            raise ImportError(f"blocked: {name}")
+sys.meta_path.insert(0, Block())
+import torch.distributed as dist
+import repro_torch.dist.sharding, repro_torch.launch.mesh
+print("OK", dist.is_initialized(),
+      any("fake_pg" in n for n in sys.modules))
+"""
+
+
+def test_sharding_and_mesh_import_with_no_process_group():
+    """``dist/sharding.py`` and ``launch/mesh.py`` import with ``jax`` and
+    ``repro`` blocked, create no process group and load no fake one."""
+    out = subprocess.run(
+        [sys.executable, "-c", MESH_BLOCKED], capture_output=True,
+        text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert out.returncode == 0, out.stderr
+    assert "OK False False" in out.stdout, out.stdout
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)
+def test_fake_process_group_is_imported_only_inside_functions(path):
+    """PyTorch's fake process group (a testing module) is never imported
+    at a module's top level: importing the port must not load it."""
+    tree = ast.parse(path.read_text())
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        assert not any("fake_pg" in n or "_internal" in n for n in names), (
+            path, names)
