@@ -6,7 +6,8 @@
     python3 chip_smoke.py --path-times [--src DIR]
     python3 chip_smoke.py --decode-ab PARENT_SRC [--src DIR]
 
-Eight paths, each at full width with random weights from --seed, in bf16:
+Eight paths, each at full width with random weights from --seed, in bf16
+(and, in phase 22, the dry run of the production meshes):
 stablelm-1.6b served (dense; prefill attention in the flash-attention
 kernel), olmoe-1b-7b served (MoE; the same attention kernel, and the
 expert FFN in the moe_mlp kernel), stablelm-1.6b trained (AdamW with int8
@@ -173,11 +174,32 @@ Phases, each of which raises on failure (the script then exits non-zero):
                a step; phase 20's final checkpoint restored with shardings
                onto the mesh, bit for bit against the plain restore; the
                process group destroyed
+22. dryrun -- repro_torch.launch.dryrun on the card: (a) on a world-1 NCCL
+               group and the (1, 1) mesh, stablelm-1.6b's prefill_32k cell
+               cut to batch 1 and olmoe-1b-7b's decode_32k cut to batch 4,
+               each dry-run and then run for real on DTensors of its specs
+               (params drawn from the seed): the dry run's kernel ops equal
+               the launches and its argument bytes the real arguments',
+               exactly; its predicted peak over max_memory_allocated
+               (against the bound written in PERF.md) and its roofline
+               bound over the CUDA-event ms, printed; (b) production cells
+               under PyTorch's fake process group on fake CUDA tensors, on
+               the (16, 16) mesh (stablelm-1.6b train_4k, olmoe-1b-7b
+               prefill_32k, deepseek-67b prefill_32k and decode_32k,
+               qwen2-vl-7b prefill_32k, jamba-v0.1-52b long_500k) and the
+               (2, 16, 16) one (olmoe-1b-7b prefill_32k): each ok, one JSON
+               line each (per-device GB, fits_hbm, the dominant roofline
+               term and bound, useful flops, collective bytes by kind,
+               kernel ops, host seconds); where the rules split the heads,
+               the per-device flash flops times the ranks that split them
+               equal the global flash flops, and qwen2-vl-7b's
+               context-parallel cell names flash as replicated over "model"
 
 Every kernel's bound is its ``cost`` (flops, bytes) in its ``ops.py``, the
-definition the dry run's kernel ops are costed by.  It prints the fidelity
-results and the kernel table as one JSON line each, then the card's name and
-power limit, then the result line {"ok": true, "device": {...}} last.
+definition the dry run's kernel ops are costed by.  It prints the fidelity,
+trainer, mesh and dry-run (phase 22) results and the kernel table as one
+JSON line each, then the card's name and power limit, then the result line
+{"ok": true, "device": {...}} last.
 Without a CUDA device, or without the repo's ``src/repro_torch`` beside it,
 it exits non-zero and prints no result.
 
@@ -328,6 +350,26 @@ TRAINER_CKPT_DIR = "_ckpt"
 # bit for bit against the same steps on plain tensors
 MESH_SEQ, MESH_DECODE_STEPS = 2048, 8
 MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS = 2, 2
+# the production-mesh dry run (phase 22): two cells cut to a batch that
+# fits one card, dry-run and run on the (1, 1) mesh of a world-1 NCCL
+# group (stablelm-1.6b's 32768-token prefill at batch 1, flash; olmoe-1b-7b
+# decoding at batch 4 against its 32768-slot cache, 17.2 GB in bf16, with
+# 27.7 GB of f32 params: moe_mlp), the predicted peak held against
+# DRYRUN_PEAK_BOUND (PERF.md); then production cells on the (16, 16) and
+# (2, 16, 16) meshes of PyTorch's fake process group, on fake CUDA tensors
+DRYRUN_NATIVE = [("stablelm-1.6b", "prefill_32k", 1),
+                 ("olmoe-1b-7b", "decode_32k", 4)]
+DRYRUN_PEAK_BOUND = (0.9, 1.1)
+DRYRUN_CELLS = [(False, [("stablelm-1.6b", "train_4k"),
+                         ("olmoe-1b-7b", "prefill_32k"),
+                         ("deepseek-67b", "prefill_32k"),
+                         ("deepseek-67b", "decode_32k"),
+                         ("qwen2-vl-7b", "prefill_32k"),
+                         ("jamba-v0.1-52b", "long_500k")]),
+                (True, [("olmoe-1b-7b", "prefill_32k")])]
+# each wrapper's custom op, by the counters' names
+OP_OF = {"flash_attention": "flash_attention", "moe_mlp": "expert_mlp",
+         "quantize": "quantize_blocks", "wkv6": "wkv6"}
 # whisper-small at full width and depth: 12 encoder layers over its 1500
 # frames, 12 decoder layers (285.5 M params); prompts and new tokens within
 # its published 448-token decoder context (max_target_positions,
@@ -2249,6 +2291,12 @@ def main() -> int:
         shutil.rmtree(ROOT / TRAINER_CKPT_DIR, ignore_errors=True)
     print(json.dumps({"mesh": mesh}))
 
+    # 22. the production-mesh dry run, after phase 21's group is gone
+    gc.collect()
+    torch.cuda.empty_cache()
+    dryrun_launches, dryrun = phase_dryrun(torch, counters, args.seed, card)
+    print(json.dumps({"dryrun": dryrun}))
+
     by_path = {ARCH: dense_launches, MOE_ARCH: moe_launches,
                f"{ARCH} train": train_launches,
                f"{MOE_ARCH} train ({MOE_TRAIN_LAYERS} layers)":
@@ -2259,7 +2307,7 @@ def main() -> int:
                f"{JAMBA_ARCH} ({jcfg.n_layers} layers)": jamba_launches,
                VLM_ARCH: vlm_launches, WHISPER_ARCH: whisper_launches,
                f"{ARCH} trainer ({TRAINER_LAYERS} layers)":
-                   trainer_launches, **mesh_launches}
+                   trainer_launches, **mesh_launches, **dryrun_launches}
     rows = [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -2847,6 +2895,173 @@ def phase_prefix_timing(torch, ops, prefix: int, card: str) -> dict:
 
 def _moe_shape(shape) -> str:
     return "G={} E={} C={} D={} F={} bf16".format(*shape)
+
+
+def phase_dryrun(torch, counters, seed: int, card: str):
+    """Phase 22: the production-mesh dry run (``repro_torch.launch.
+    dryrun``) on the card; see the module docstring.  Returns (launches
+    by path of the native runs, the phase's numbers)."""
+    import gc
+    import torch.distributed as dist
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch.mesh import make_mesh
+    t_phase = time.perf_counter()
+    out = {"card": card, "native": {}, "cells": {}}
+    launches = {}
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        for arch, name, batch in DRYRUN_NATIVE:
+            label = f"{arch} {name} b={batch} (1, 1) mesh"
+            launches[label], out["native"][label] = _dryrun_native(
+                torch, counters, dr, arch, name, batch, mesh, seed, card)
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    for multi, cells in DRYRUN_CELLS:
+        with dr.fake_process_group(512 if multi else 256):
+            for arch, name in cells:
+                out["cells"][f"{arch} {name} {'multi' if multi else 'single'}"
+                             ] = _dryrun_production(torch, dr, arch, name,
+                                                    multi, card)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"dryrun: phase {out['phase_s']:.1f} s [{card}]")
+    return launches, out
+
+
+def _dryrun_native(torch, counters, dr, arch: str, name: str, batch: int,
+                   mesh, seed: int, card: str):
+    """One production cell cut to ``batch`` on the (1, 1) mesh: its dry
+    run, then the same step on real DTensors of the specs' shapes (params
+    drawn from ``seed``, tokens random, a zero cache at its last slot):
+    the dry run's kernel ops against the launches, its argument bytes
+    against the real arguments', exactly; its peak against
+    ``max_memory_allocated`` and its roofline bound against the CUDA-event
+    ms, printed."""
+    import dataclasses
+    from repro_torch.core.fidelity import DryRunBackend
+    from repro_torch.dist.sharding import MeshSharder
+    from repro_torch.models import build_model
+    from repro_torch.models.common import map_leaves
+    shape = dataclasses.replace(dr.SHAPES[name], global_batch=batch)
+    prog, rules, _ = dr.build_program(arch, name, mesh, device="cuda",
+                                      shape=shape)
+    rep = DryRunBackend().run(prog)
+    roof = dr.roofline_terms(rep, 1)
+    mem = rep.memory
+    predicted = (mem["argument_bytes"] + mem["output_bytes"]
+                 + mem["temp_bytes"] - mem["alias_bytes"])
+    cfg = dr.get_config(arch)
+    sh = MeshSharder(mesh, rules)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 22)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+
+    def real(spec):
+        if spec.shape == () and not spec.dtype.is_floating_point:
+            return torch.tensor(shape.seq_len - 1, dtype=spec.dtype,
+                                device="cuda")          # cur_len
+        if not spec.dtype.is_floating_point:
+            return torch.randint(0, cfg.vocab_size, spec.shape,
+                                 generator=gen, device="cuda",
+                                 dtype=spec.dtype)
+        return torch.zeros(spec.shape, dtype=spec.dtype, device="cuda")
+    params = sh.distribute(build_model(cfg).init(seed, "cuda"),
+                           prog.in_shardings[0])
+    batch_t = sh.distribute(map_leaves(real, prog.input_specs[1]),
+                            prog.in_shardings[1])
+    args = (params, batch_t)
+    arg_bytes = float(sum(t.to_local().numel() * t.element_size()
+                          for t in _leaves(args)))
+    for w in counters.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        prog.fn(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    launched = {n: w.launches for n, w in counters.items()}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with torch.no_grad():
+        start.record()
+        prog.fn(*args)
+        end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end)
+    want = {n: rep.detail["kernels"].get(OP_OF[n], 0) for n in counters}
+    check(launched == want, f"{arch} {name}: launches {launched}, the dry "
+                            f"run's kernel ops {rep.detail['kernels']}")
+    check(arg_bytes == mem["argument_bytes"],
+          f"{arch} {name}: real arguments {arg_bytes} bytes, the dry run's "
+          f"{mem['argument_bytes']}")
+    res = {"reduced": f"global batch {dr.SHAPES[name].global_batch} -> "
+                      f"{batch}, the (1, 1) mesh",
+           "kernel_ops": rep.detail["kernels"], "launches": launched,
+           "argument_bytes": arg_bytes, "predicted_peak_bytes": predicted,
+           "measured_peak_bytes": float(peak),
+           "peak_ratio": predicted / peak, "peak_bound": DRYRUN_PEAK_BOUND,
+           "bound_s": roof["bound_s"], "dominant": roof["dominant"],
+           "measured_ms": ms, "bound_over_measured": roof["bound_s"] * 1e3
+           / ms, "dryrun_host_s": rep.wall_s}
+    print(f"dryrun: {arch} {name} at batch {batch} on the (1, 1) mesh: "
+          f"kernel ops {rep.detail['kernels']} = launches; argument bytes "
+          f"{arg_bytes / 1e9:.3f} GB exact; predicted peak "
+          f"{predicted / 2**30:.2f} GiB over max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB = {res['peak_ratio']:.4f} (bound "
+          f"{DRYRUN_PEAK_BOUND}); roofline {roof['dominant']} bound "
+          f"{roof['bound_s'] * 1e3:.2f} ms over measured {ms:.2f} ms = "
+          f"{res['bound_over_measured']:.4f} [{card}]")
+    del args, params, batch_t
+    return launched, res
+
+
+def _dryrun_production(torch, dr, arch: str, name: str, multi: bool,
+                       card: str) -> dict:
+    """One production cell under the fake process group on fake CUDA
+    tensors: ``ok``, and where the rules split the heads, the per-device
+    flash flops times the ranks that split them equal the global flash
+    flops; a context-parallel cell names flash as replicated."""
+    import math
+    res = dr.dryrun_cell(arch, name, multi)
+    check(res["status"] == "ok", f"dry run {arch} {name}: {res}")
+    from types import SimpleNamespace
+    cfg, shape = dr.get_config(arch), dr.SHAPES[name]
+    axes = res["mesh_desc"]["axes"]
+    rules = dr.make_rules(cfg, shape, SimpleNamespace(
+        mesh_dim_names=tuple(axes), shape=tuple(axes.values())))
+    if shape.kind == "prefill" and cfg.n_heads and cfg.family != "audio":
+        # the ranks that split the heads (JAX's head TP) and the batch
+        # each hold their share of the global flash flops; where the
+        # heads are not split ("q_seq"), flash runs whole over "model"
+        got = res["kernel_flops"]["flash_attention"]
+        want = dr.flash_global_flops(cfg, shape)
+        n = dr.flash_split_ranks(cfg, shape, rules)
+        check(math.isclose(got * n, want, rel_tol=1e-9),
+              f"dry run {arch} {name}: flash {got} flops a device x {n} "
+              f"ranks, global {want}")
+        check(res["replicated_kernels"] == (
+            {} if rules.size("heads") > 1 else {"flash_attention":
+                                                ["model"]}),
+              f"dry run {arch} {name}: {res['replicated_kernels']}")
+    mem = res["memory"]
+    line = {"arch": arch, "shape": name,
+            "mesh": "multi" if multi else "single",
+            "per_device_gb": mem["per_device_total"] / 1e9,
+            "fits_hbm": res["fits_hbm"],
+            "dominant": res["roofline"]["dominant"],
+            "bound_s": res["roofline"]["bound_s"],
+            "useful_flops_ratio": res["useful_flops_ratio"],
+            "collective_bytes": {k: v["bytes"]
+                                 for k, v in res["collectives"].items()},
+            "kernels": res["kernels"], "trace_s": res["trace_s"],
+            "replicated_kernels": res["replicated_kernels"], "card": card}
+    print(json.dumps({"dryrun_cell": line}))
+    return line
 
 
 def _leaves(tree):

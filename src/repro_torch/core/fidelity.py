@@ -15,7 +15,11 @@ function and the specs of its inputs):
                         a replay that times it on a machine model (gem5's
                         detailed mode).
 
-All three return a ``StepReport`` with the JAX package's fields.  The
+All three return a ``StepReport`` with the JAX package's fields.  A
+program on a device mesh (``StepProgram.mesh`` and ``in_shardings``) is
+dry-run as one rank of it: each input a fake local shard wrapped as a
+DTensor, every cost per device (``launch/dryrun.py`` runs the production
+meshes under PyTorch's fake process group).  The
 port imports nothing of ``repro``, so the replay is the caller's: a
 callable that takes the trace as plain data (``TraceOp``'s field names)
 and returns the makespan, such as one built on the JAX-free
@@ -33,9 +37,13 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.overrides import TorchFunctionMode
 
+from torch.distributed.tensor import DTensor
+
 from repro_torch.core.op_cost import CostMode
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.common import TensorSpec
+from repro_torch.dist.sharding import (_contiguous_strides,
+                                       local_shape_and_offset)
+from repro_torch.models.common import TensorSpec, map_leaves
 
 
 def _tree_map(fn: Callable, tree: Any) -> Any:
@@ -82,14 +90,20 @@ class StepProgram:
 
     ``input_specs`` is a tuple of positional args, each a tree (dicts,
     lists, tuples) of ``TensorSpec`` and plain values; ``device`` is
-    where the step runs (``cuda`` unless the caller names the CPU).  The
-    JAX program's ``in_shardings``, ``out_shardings`` and ``mesh`` wait
-    for the production-mesh dry run (ROADMAP.md Queue 1 item 9b)."""
+    where the step runs (``cuda`` unless the caller names the CPU).
+    ``mesh`` is the ``DeviceMesh`` the step runs on, and
+    ``in_shardings`` a tree beside ``input_specs`` with the
+    ``dist.sharding.NamedSharding`` of each spec (the JAX program's
+    ``in_shardings``); without a mesh the inputs are plain tensors.
+    JAX's ``out_shardings`` has no twin: DTensor gives each output the
+    layout its last op leaves."""
 
     name: str
     fn: Callable
     input_specs: Any
     device: DeviceLike = None
+    mesh: Any = None
+    in_shardings: Any = None
 
 
 @dataclass
@@ -156,16 +170,26 @@ class DryRunBackend(Backend):
     The inputs, params included, are made fake tensors on
     ``prog.device`` from their specs, so no device memory is allocated
     and no kernel is launched: each of the port's kernels is one custom
-    op whose fake implementation gives its outputs' shapes.  ``flops``
-    and ``bytes_accessed`` sum ``core.op_cost`` over the ops;
-    ``collective_bytes`` is 0 (one device).  ``memory`` holds the exact
-    ``argument_bytes`` and ``output_bytes``; ``temp_bytes``,
-    ``alias_bytes`` and ``code_bytes`` stay 0.0 (eager PyTorch has no
-    compiled module to read them from).  ``detail["ops"]`` is the op
-    stream ``(name, flops, bytes)``, the analogue of ``detail["hlo"]``;
+    op whose fake implementation gives its outputs' shapes.  On a mesh
+    each input is its shard on this process's rank of the mesh (rank 0
+    under the fake process group), a fake local tensor wrapped by
+    ``DTensor.from_local`` at the spec's global shape, and every number
+    below is per device.  ``flops`` and ``bytes_accessed`` sum
+    ``core.op_cost`` over the ops; ``collective_bytes`` the collectives'
+    operand bytes (0 without a mesh).  ``memory`` holds the exact
+    ``argument_bytes`` and ``output_bytes``; ``alias_bytes``, the
+    outputs' bytes that are arguments' storage (a cache or a state
+    updated in place, JAX's donated buffers); and ``temp_bytes``, the
+    peak of the storage the step created and held at once, less the
+    outputs it created, so that ``argument_bytes + output_bytes +
+    temp_bytes - alias_bytes`` is the step's peak on the device;
+    ``code_bytes`` stays 0.0.  ``detail["ops"]`` is the op stream
+    ``(name, flops, bytes)``, the analogue of ``detail["hlo"]``;
     ``detail["kernels"]`` counts each kernel's calls;
     ``detail["unknown_ops"]`` the calls of ops that ``op_cost`` has no
-    flops rule for (costed at 0 flops and their bytes).
+    flops rule for (costed at 0 flops and their bytes);
+    ``detail["collectives"]``, ``["copy_bytes"]``, ``["top_dots"]`` and
+    ``["top_bytes"]`` are ``CostMode``'s.
 
     The step may not read a value back to the host (``.item()``,
     ``int(tensor)``): a fake tensor has none.  The train and prefill
@@ -187,19 +211,29 @@ class DryRunBackend(Backend):
                 f"with device='cpu'")
         t0 = time.perf_counter()
         with FakeTensorMode(), _device_guard_free(dev):
-            args = _fake(prog.input_specs, dev)
+            args = (_fake(prog.input_specs, dev) if prog.mesh is None else
+                    _fake_shards(prog.input_specs, prog.in_shardings, dev))
             with CostMode() as cost:
+                cost.track_arguments(args)
                 out = prog.fn(*args)
             arg_bytes, out_bytes = _bytes_of(args), _bytes_of(out)
+            created, alias = cost.storage_bytes(out)
+            temp = max(0.0, cost.peak_bytes - created)
+            del out, args
         rep = StepReport(self.kind, prog.name,
                          wall_s=time.perf_counter() - t0, flops=cost.flops,
-                         bytes_accessed=cost.bytes, collective_bytes=0.0)
+                         bytes_accessed=cost.bytes,
+                         collective_bytes=cost.collective_bytes)
         rep.memory = {"argument_bytes": arg_bytes, "output_bytes": out_bytes,
-                      "temp_bytes": 0.0, "alias_bytes": 0.0,
+                      "temp_bytes": temp, "alias_bytes": alias,
                       "code_bytes": 0.0}
         rep.detail["ops"] = cost.ops
         rep.detail["kernels"] = dict(cost.kernels)
         rep.detail["unknown_ops"] = dict(cost.unknown)
+        rep.detail["collectives"] = cost.collectives
+        rep.detail["copy_bytes"] = cost.copy_bytes
+        rep.detail["top_dots"] = cost.top_dots
+        rep.detail["top_bytes"] = cost.top_bytes
         return rep
 
 
@@ -289,6 +323,26 @@ def _fake(specs: Any, device: torch.device) -> Any:
             s.requires_grad) if isinstance(s, TensorSpec) else s, specs)
 
 
+def _fake_shards(specs: Any, shardings: Any, device: torch.device) -> Any:
+    """``specs`` with every ``TensorSpec`` made a DTensor: this rank's
+    local shard (a fake tensor on ``device``, inside a
+    ``FakeTensorMode``) by its ``NamedSharding`` in ``shardings``, at the
+    spec's global shape and contiguous strides.  A spec that requires
+    grad gives a leaf DTensor that requires grad, as
+    ``distribute_tensor`` does."""
+    def one(s, sh):
+        if not isinstance(s, TensorSpec):
+            return s
+        local, _ = local_shape_and_offset(tuple(s.shape), sh.mesh,
+                                          sh.placements)
+        t = DTensor.from_local(
+            torch.empty(tuple(local), dtype=s.dtype, device=device),
+            sh.mesh, sh.placements, run_check=False, shape=s.shape,
+            stride=_contiguous_strides(tuple(s.shape)))
+        return t.requires_grad_(s.requires_grad)
+    return map_leaves(one, specs, shardings)
+
+
 def _device_of(args: Any) -> torch.device:
     """``cuda`` if any tensor in ``args`` lies there, else the CPU."""
     return torch.device("cuda" if any(
@@ -297,20 +351,47 @@ def _device_of(args: Any) -> torch.device:
 
 
 def _bytes_of(tree: Any) -> float:
-    """Bytes of the distinct tensors in ``tree``."""
-    seen = {id(t): t for t in _leaves(tree) if isinstance(t, torch.Tensor)}
+    """Bytes of the distinct tensors in ``tree``; a DTensor's are its
+    local shard's."""
+    seen = {id(t): t.to_local() if isinstance(t, DTensor) else t
+            for t in _leaves(tree) if isinstance(t, torch.Tensor)}
     return float(sum(t.numel() * t.element_size() for t in seen.values()))
 
 
 def _device_guard_free(device: DeviceLike):
     """A context in which fake CUDA tensors can be indexed on a host with
-    no card: PyTorch's Python bindings of indexing (``t[...]``) and
-    ``contiguous`` take a device guard, which needs the CUDA runtime.
+    no card: PyTorch's Python bindings of indexing (``t[...]``),
+    ``contiguous`` and ``copy_`` take a device guard, which needs the CUDA
+    runtime.
     There they are spelled with the aten ops they dispatch to, so the
-    ops, and their costs, are the same.  Elsewhere it does nothing."""
+    ops, and their costs, are the same: indexing by a torch function mode
+    over the step's own code, ``contiguous`` and ``copy_`` also as
+    methods of ``torch.Tensor`` while the context lasts, since DTensor
+    calls them on its local shards with torch functions disabled.
+    Elsewhere it does nothing."""
     if torch.device(device).type != "cuda" or torch.cuda.is_available():
         return contextlib.nullcontext()
-    return _GuardFreeIndexing()
+    return _guard_free()
+
+
+@contextlib.contextmanager
+def _guard_free():
+    torch.Tensor.contiguous = _contiguous
+    torch.Tensor.copy_ = _copy_
+    try:
+        with _GuardFreeIndexing():
+            yield
+    finally:
+        del torch.Tensor.contiguous, torch.Tensor.copy_
+
+
+def _contiguous(t, memory_format=torch.contiguous_format):
+    return t if t.is_contiguous(memory_format=memory_format) else t.clone(
+        memory_format=memory_format)
+
+
+def _copy_(t, src, non_blocking=False):
+    return torch.ops.aten.copy_.default(t, src, non_blocking)
 
 
 class _GuardFreeIndexing(TorchFunctionMode):
@@ -324,11 +405,6 @@ class _GuardFreeIndexing(TorchFunctionMode):
             for d, ix in adv:
                 index[d] = ix
             return torch.ops.aten.index(view, index)
-        if func is torch.Tensor.contiguous:
-            t = args[0]
-            fmt = kwargs.get("memory_format", torch.contiguous_format)
-            return t if t.is_contiguous(memory_format=fmt) else t.clone(
-                memory_format=fmt)
         return func(*args, **kwargs)
 
 

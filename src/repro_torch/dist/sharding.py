@@ -45,7 +45,7 @@ from torch.distributed.tensor import (DTensor, Placement, Replicate, Shard,
 from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
-from repro_torch.models.common import Sharder, map_leaves
+from repro_torch.models.common import Sharder, leaves, map_leaves
 
 # logical axis name -> tuple of mesh axis names (None = replicated)
 Mapping = Dict[str, Optional[Tuple[str, ...]]]
@@ -199,6 +199,28 @@ def make_rules(cfg: ArchConfig, shape: ShapeConfig, mesh: Any) -> Rules:
     return Rules(mapping=mapping, axis_sizes=sizes)
 
 
+def local_shape_and_offset(shape: Tuple[int, ...], mesh: Any,
+                           placements: Tuple[Placement, ...]
+                           ) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """This rank's shard of a tensor of ``shape`` laid out by
+    ``placements`` on ``mesh``: its shape and its offset in the global
+    tensor.  Each ``Shard(d)`` splits the part of dim d left by the mesh
+    dims before it as DTensor does (``torch.chunk``: pieces of ceil(size
+    / n)).  Plain integers, so that it also runs inside a
+    ``FakeTensorMode`` (torch 2.13's ``compute_local_shape_and_global_
+    offset`` computes with tensors there)."""
+    coord = mesh.get_coordinate()
+    size, offset = list(shape), [0] * len(shape)
+    for i, p in enumerate(placements):
+        if p.is_shard():
+            d, n = p.dim, mesh.size(i)
+            piece = -(-size[d] // n)
+            start = min(coord[i] * piece, size[d])
+            offset[d] += start
+            size[d] = min(start + piece, size[d]) - start
+    return tuple(size), tuple(offset)
+
+
 def _contiguous_strides(shape: Tuple[int, ...]) -> Tuple[int, ...]:
     strides, n = [], 1
     for d in reversed(shape):
@@ -270,23 +292,55 @@ class MeshSharder(Sharder):
         finally:
             self._depth -= 1
 
+    def layer_stacks(self, cache: Any) -> Any:
+        """A stacked cache whose leaves' layer dim is split (a decode
+        batch laid out by ``batch_shardings``, which splits every leaf's
+        leading dim, as the JAX dry run's does): each such leaf moves that
+        split to its batch dim, or drops it where the batch does not
+        divide, so that each layer's view lies on every rank, as the loop
+        over layers needs; the move is one all-to-all, not a gather of
+        the whole cache for each layer.  The decode step writes the moved
+        cache and returns it; a cache with no such leaf is ``cache``
+        itself, written in place."""
+        moved = map_leaves(self._layer_stack, cache)
+        if all(a is b for a, b in zip(leaves(moved), leaves(cache))):
+            return cache
+        return moved
+
+    def _layer_stack(self, x: torch.Tensor) -> torch.Tensor:
+        if not isinstance(x, DTensor) or not any(p.is_shard(0)
+                                                 for p in x.placements):
+            return x
+        pl = tuple(x.placements)
+        n = math.prod(self.mesh.size(i) for i, p in enumerate(pl)
+                      if p.is_shard(0))
+        to = (Shard(1) if x.shape[1] % n == 0
+              and not any(p.is_shard(1) for p in pl) else Replicate())
+        return x.redistribute(self.mesh, tuple(to if p.is_shard(0) else p
+                                               for p in pl))
+
     def write_kv_(self, ck: torch.Tensor, cv: torch.Tensor,
                   slot: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                   ) -> None:
         """The in-place cache write on each rank's local shards: the
-        index and the new rows are laid out like the cache first, so each
-        rank writes its own rows and heads (DTensor's own in-place writes
-        into a sharded tensor are refused in torch 2.11).  The caches must
-        not be split along their slots (dim 2)."""
+        index and the new rows are laid out like the cache's rows and
+        heads first, so each rank writes its own rows and heads (DTensor's
+        own in-place writes into a sharded tensor are refused in torch
+        2.11).
+
+        A cache split along its slots (dim 2, the "kv_seq" rule) holds
+        slots ``[offset, offset + n)`` on each rank: a row's write lands
+        on the rank whose range holds its slot, at ``slot - offset``, and
+        every other rank writes that row's old value back in place (the
+        index clamped into its range), so no collective and no branch on
+        a tensor value is needed (fake tensors have no values)."""
         if not isinstance(ck, DTensor):
             return super().write_kv_(ck, cv, slot, k, v)
         reps = [Replicate()] * self.mesh.ndim
         for t, new in ((ck, k), (cv, v)):
             want = tuple(t.placements)
-            if any(p.is_shard(2) for p in want):
-                raise NotImplementedError(
-                    f"an in-place write into a cache split along its slots "
-                    f"({want}); see ROADMAP.md Queue 1 item 9b")
+            # the new rows keep dim 2 whole: it has one slot
+            rows = tuple(Replicate() if p.is_shard(2) else p for p in want)
             new = new.unsqueeze(2)                     # (b, kvh, 1, hd)
             idx = slot[:, None, None, None].expand(new.shape)
 
@@ -294,8 +348,17 @@ class MeshSharder(Sharder):
                 if not isinstance(x, DTensor):
                     x = DTensor.from_local(x, self.mesh, reps,
                                            run_check=False)
-                return x.redistribute(self.mesh, want).to_local()
-            t.to_local().scatter_(2, like_t(idx), like_t(new))
+                return x.redistribute(self.mesh, rows).to_local()
+            local, idx, new = t.to_local(), like_t(idx), like_t(new)
+            if rows != want:
+                _, offset = local_shape_and_offset(tuple(t.shape),
+                                                   self.mesh, want)
+                n = local.shape[2]
+                pos = idx - offset[2]
+                inside = (pos >= 0) & (pos < n)
+                idx = pos.clamp(0, n - 1)
+                new = torch.where(inside, new, local.gather(2, idx))
+            local.scatter_(2, idx, new)
 
     # -- shardings ---------------------------------------------------------
     def sharding(self, axes: Tuple[Optional[str], ...]) -> NamedSharding:

@@ -20,12 +20,15 @@ launches nothing.  Each op also has a DTensor sharding strategy
 (``torch.distributed.tensor.experimental.register_sharding``): on
 DTensors the op launches the same kernel on each rank's local shards,
 laid out as the strategy allows, or on replicated inputs for any other
-layout; it never drops to the plain version.
+layout; it never drops to the plain version.  A layout survives only
+where it splits every argument evenly (``_even``).
 """
 
+import math
 from typing import Callable, Dict, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.experimental import register_sharding
 
 # each kernel's custom op, by name, to its (flops, bytes) on the op's own
@@ -45,6 +48,14 @@ def register_op(name: str, schema: str, cuda_impl, fake_impl, cost,
     locally, each ``([output placements], [input placements])`` with
     ``None`` for an argument that is no tensor.  Returns the op.
 
+    ``register_sharding`` expands the one-dim layouts to every
+    combination over the mesh's dims, blind to each dim's size; the
+    expansion is then registered again through the propagator's
+    ``register_op_strategy`` with the combinations that split some
+    argument unevenly taken out (``_even``), so that a layout holds only
+    where the mesh dims that take it divide the dim they split (flash's
+    heads over "model" but not over the whole mesh).
+
     ``torch.library.define`` and ``impl``, not ``custom_op``: the latter
     runs a Python autograd layer and an aliasing check on every call,
     host time that every decode step would pay."""
@@ -55,7 +66,33 @@ def register_op(name: str, schema: str, cuda_impl, fake_impl, cost,
     COSTS[name] = cost
     op = getattr(torch.ops.repro_torch, name).default
     register_sharding(op)(sharding)
+    prop = DTensor._op_dispatcher.sharding_propagator
+    expand = prop.op_strategy_funcs[op]
+
+    def even_strategy(op_schema):
+        strategy = expand(op_schema)
+        strategy.strategies = [s for s in strategy.strategies if _even(s)]
+        return strategy
+
+    prop.register_op_strategy(op, even_strategy,
+                              prop.op_to_schema_info.get(op))
     return op
+
+
+def _even(op_spec) -> bool:
+    """Whether every tensor argument of one expanded layout splits each
+    of its dims into equal shards: the product of the sizes of the mesh
+    dims that shard a dim divides that dim."""
+    for spec in op_spec.input_specs:
+        if spec is None or spec.tensor_meta is None:
+            continue
+        for dim, size in enumerate(spec.tensor_meta.shape):
+            n = math.prod(spec.mesh.size(i)
+                          for i, p in enumerate(spec.placements)
+                          if p.is_shard(dim))
+            if size % n:
+                return False
+    return True
 
 
 def refuse_autograd(name: str, *tensors: torch.Tensor) -> None:

@@ -16,8 +16,8 @@ the launch, the count); its fake implementation gives the output's shape,
 dtype and strides, so a dry run on fake tensors
 (``repro_torch.core.fidelity``) sees one op, costed by ``cost``, and
 launches nothing.  On DTensors it runs on each rank's local q, k and v,
-split over batch, or over heads where both head counts divide the mesh
-(``sharding``).
+split over batch, or over heads where the mesh dims that split them
+divide both head counts (``sharding``).
 """
 
 from __future__ import annotations
@@ -149,15 +149,19 @@ def cost(q_shape, kv_shape, dtype: torch.dtype, causal: bool = True,
 def sharding(q, k, v, causal, window, prefix):
     """DTensor layouts of one mesh dim: all replicated; q, k, v and the
     output split over batch (each row's attention is its own); or over
-    heads, offered only where the mesh's size divides both head counts,
-    so that every local q head keeps its kv head (GQA) on any split."""
+    heads.  The heads split holds per mesh dim: ``register_op`` keeps a
+    combination only where the mesh dims that split the heads divide
+    both head counts (``kernels._even``), so that every local q head
+    keeps its kv head (GQA).  The heads of a (16, 16) mesh's "model" dim
+    are split while "data" splits the batch, where a test of the whole
+    mesh's 256 would replicate them.  A query split (context
+    parallelism, the "q_seq" rule) is not offered: the kernel masks by
+    index, so a shard of query rows would need their offset; such q is
+    replicated over the dim that splits it."""
     rest = [None, None, None]
-    out = [([Replicate()], [Replicate()] * 3 + rest),
-           ([Shard(0)], [Shard(0)] * 3 + rest)]
-    n = q.mesh.size()
-    if q.shape[2] % n == 0 and k.shape[2] % n == 0:
-        out.append(([Shard(2)], [Shard(2)] * 3 + rest))
-    return out
+    return [([Replicate()], [Replicate()] * 3 + rest),
+            ([Shard(0)], [Shard(0)] * 3 + rest),
+            ([Shard(2)], [Shard(2)] * 3 + rest)]
 
 
 OP = register_op("flash_attention",

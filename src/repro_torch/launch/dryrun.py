@@ -1,0 +1,440 @@
+"""Multi-pod dry run of the port: cost every (architecture x input shape)
+cell per device on the production meshes, the twin of
+``repro.launch.dryrun``.
+
+For each cell this dry run:
+  1. builds the step (train_step / prefill_step / decode_step) with the
+     cell's ``MeshSharder`` and the production shardings of its params,
+     train state and batch (``make_rules``, ``param_shardings``,
+     ``batch_shardings``, as the JAX dry run's ``in_shardings``);
+  2. runs it once as rank 0 of the (16, 16) or (2, 16, 16) mesh under
+     PyTorch's fake process group, on fake tensors
+     (``core.fidelity.DryRunBackend``): every input is rank 0's local
+     shard wrapped as a DTensor, nothing is allocated and nothing is
+     launched, and DTensor emits the local ops and the collectives that
+     one rank would.  Success shows that the layout is coherent (every op
+     has a strategy, every redistribution resolves);
+  3. records the per-device costs of that stream (``core.op_cost``): the
+     flops and bytes of the local ops at their local shapes, the port's
+     four kernels at their ``cost``, the collectives by kind with their
+     operand bytes, the exact argument and output bytes and the peak of
+     the storage the step held at once;
+  4. derives the three roofline terms from the card's constants below
+     and writes the JAX cell's keys as JSON.
+
+Keys as in the JAX dry run, where the port computes them: ``status``,
+``kind``, ``mesh_desc``, ``memory`` (``argument_bytes``,
+``output_bytes``, ``temp_bytes``, ``alias_bytes``, ``per_device_total``),
+``fits_hbm``, ``roofline`` (every key of ``roofline_terms``),
+``collectives``, ``model_flops_global``, ``hlo_flops_global`` (the
+per-device flops times the ranks, under JAX's name),
+``useful_flops_ratio``, ``rules``.  Their twins: ``top_dots`` and
+``top_bytes`` are the largest ops of the costed stream, and ``trace_s``,
+the host seconds of the fake run, stands for ``lower_s`` and
+``compile_s``.  ``temp_bytes`` is eager PyTorch's peak of live storage
+less the outputs, not a compiled module's temp buffer.
+``xla_cost_analysis`` is written as ``null``: it is XLA's own count of
+the compiled module, and eager PyTorch has no compiled module to ask;
+``roofline`` holds the port's count.  Keys of the port's own:
+``kernels`` (each kernel's calls) and ``kernel_flops`` (their flops a
+device, by kernel), ``unknown_ops``, ``options`` (the
+train options the cell ran with), ``device`` and
+``replicated_kernels``: the kernels whose inputs the cell's layout
+splits over a mesh axis that the kernel cannot take (flash over
+"model" in a context-parallel "q_seq" cell: the kernel masks by index,
+so a shard of query rows would need its offset), so that they run on
+all of it there.
+
+Constants: one NVIDIA H100 SXM5 (dense bf16 tensor-core peak, HBM3 rate
+and size, NVLink 4 rate per direction).  A 16-wide mesh axis spans two
+8-GPU nodes, whose link between them is slower than NVLink, so
+``collective_s`` is a lower bound on the collectives' time.
+
+On the card the cells run on fake CUDA tensors.  On a host with no card
+the prefill and decode cells do too (nothing runs), and the train cells
+run on fake CPU tensors: autograd on fake CUDA tensors needs the CUDA
+runtime (``core.fidelity.DryRunBackend``).  ``--device`` forces one.
+
+Usage:
+  python -m repro_torch.launch.dryrun --arch olmoe-1b-7b --shape train_4k
+  python -m repro_torch.launch.dryrun --all     # 40 cells x 2 meshes
+  python -m repro_torch.launch.dryrun --all --single-pod-only --device cpu
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import dataclasses
+import json
+import math
+import os
+import time
+from typing import Any, Dict, Iterator, Optional
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.configs import REGISTRY, SHAPES, get_config
+from repro_torch.configs.base import ArchConfig, ShapeConfig, cell_runnable
+from repro_torch.core.fidelity import DryRunBackend, StepProgram, StepReport
+from repro_torch.dist.sharding import MeshSharder, make_rules, mesh_axes
+from repro_torch.kernels.flash_attention.ops import cost as flash_cost
+from repro_torch.launch.mesh import describe, make_production_mesh
+from repro_torch.models import build_model
+from repro_torch.models.common import map_leaves
+from repro_torch.serve.step import build_decode_step, build_prefill_step
+from repro_torch.train.step import (TrainOptions, build_train_step,
+                                    default_options_for, train_state_specs)
+
+# NVIDIA H100 SXM5 constants (NVIDIA H100 Tensor Core GPU datasheet)
+PEAK_FLOPS = 989e12        # dense bf16 tensor-core peak, FLOP/s
+HBM_BW = 3.35e12           # HBM3, bytes/s
+NVLINK_BW = 450e9          # NVLink 4, bytes/s per direction (900 GB/s both)
+HBM_BYTES = 80e9           # HBM3 capacity
+
+# Gradient-accumulation microbatching per train cell: the JAX dry run's
+# choice (src/repro/launch/dryrun.py), kept so that the two dry runs cost
+# the same step.
+TRAIN_ACCUM = {
+    "deepseek-67b": 8,
+    "jamba-v0.1-52b": 8,
+    "mixtral-8x22b": 16,
+    "olmoe-1b-7b": 4,
+    "nemotron-4-15b": 2,
+    "rwkv6-7b": 2,
+    "stablelm-1.6b": 1,
+    "minicpm-2b": 1,
+    "qwen2-vl-7b": 1,
+    "whisper-small": 1,
+}
+# archs whose Adam moments are bf16 (141 B and 52 B params)
+BF16_MOMENTS = ("mixtral-8x22b", "jamba-v0.1-52b")
+
+
+def cell_options(cfg: ArchConfig, shape: ShapeConfig, mesh: Any
+                 ) -> TrainOptions:
+    """The JAX dry run's options for one cell: ``TRAIN_ACCUM``, capped so
+    that a microbatch still divides the data-parallel ranks; bf16 moments
+    for ``BF16_MOMENTS``; a 4096-token attention chunk for deepseek-67b's
+    train cell (one KV chunk at train_4k), 2048 elsewhere.  ``mesh`` may
+    be a ``DeviceMesh`` or a mock with axis names and sizes."""
+    sizes = mesh_axes(mesh)
+    dp = math.prod(sizes.get(a, 1) for a in ("pod", "data"))
+    accum = TRAIN_ACCUM.get(cfg.name, 1) if shape.kind == "train" else 1
+    accum = max(1, min(accum, shape.global_batch // dp))
+    return dataclasses.replace(
+        default_options_for(cfg), accum_steps=accum,
+        moment_dtype=("bfloat16" if cfg.name in BF16_MOMENTS
+                      else "float32"),
+        chunk=(4096 if cfg.name == "deepseek-67b" and shape.kind == "train"
+               else 2048))
+
+
+def model_flops(cfg: ArchConfig, shape: ShapeConfig) -> float:
+    """MODEL_FLOPS: 6 N D for a train step, 2 N D forward; a decode step
+    makes one token per sequence."""
+    if shape.kind == "decode":
+        return cfg.model_flops(shape.global_batch, backward=False)
+    return cfg.model_flops(shape.global_batch * shape.seq_len,
+                           backward=shape.kind == "train")
+
+
+def replicated_kernels(cfg: ArchConfig, shape: ShapeConfig,
+                       rules) -> Dict[str, list]:
+    """Kernels whose inputs the cell's rules split over an axis the
+    kernel's strategy does not take: flash in a prefill whose queries
+    are split over "q_seq" runs replicated over those axes."""
+    q_seq = rules.mapping.get("q_seq")
+    if shape.kind == "prefill" and cfg.n_heads and q_seq:
+        return {"flash_attention": list(q_seq)}
+    return {}
+
+
+def flash_global_flops(cfg: ArchConfig, shape: ShapeConfig) -> float:
+    """The flash kernel's flops in a decoder LM's prefill cell, at global
+    shapes: one call per attention layer, causal over the whole sequence
+    (the vision prefix of a VLM included), by the kernel's ``cost``."""
+    n_attn = sum(cfg.is_attn_layer(i) for i in range(cfg.n_layers))
+    b, s, hd = shape.global_batch, shape.seq_len, cfg.head_dim
+    flops, _ = flash_cost((b, s, cfg.n_heads, hd),
+                          (b, s, cfg.n_kv_heads, hd), torch.bfloat16,
+                          causal=True, window=cfg.sliding_window,
+                          prefix=cfg.n_vis if cfg.family == "vlm" else 0)
+    return n_attn * flops
+
+
+def flash_split_ranks(cfg: ArchConfig, shape: ShapeConfig, rules) -> int:
+    """The ranks that split a prefill's flash calls between them: its
+    batch's data-parallel ranks and, where the rules split the heads
+    (JAX's head TP), the "heads" ranks; the ranks of the rest hold the
+    same call."""
+    n = rules.size("batch") if shape.global_batch % rules.size("batch") \
+        == 0 else 1
+    return n * rules.size("heads")
+
+
+def default_device(kind: str) -> str:
+    """Fake CUDA tensors, except a train cell on a host with no card."""
+    return "cuda" if kind != "train" or torch.cuda.is_available() else "cpu"
+
+
+def roofline_terms(rep: StepReport, n_dev: int) -> Dict[str, Any]:
+    """The three roofline terms of one device's step, with the JAX
+    dry run's keys."""
+    flops, nbytes = rep.flops, rep.bytes_accessed
+    copy_bytes = rep.detail["copy_bytes"]
+    coll_bytes = rep.collective_bytes
+    compute = flops / PEAK_FLOPS
+    memory = nbytes / HBM_BW
+    memory_ex_copies = max(0.0, nbytes - copy_bytes) / HBM_BW
+    coll = coll_bytes / NVLINK_BW
+    dom = max(("compute", compute), ("memory", memory),
+              ("collective", coll), key=lambda kv: kv[1])[0]
+    return {"compute_s": compute, "memory_s": memory,
+            "memory_s_ex_copies": memory_ex_copies, "collective_s": coll,
+            "dominant": dom, "bound_s": max(compute, memory, coll),
+            "bound_s_ex_copies": max(compute, memory_ex_copies, coll),
+            "hlo_flops_per_device": flops,
+            "hlo_bytes_per_device": nbytes,
+            "copy_bytes_per_device": copy_bytes,
+            "collective_bytes_per_device": coll_bytes}
+
+
+def _cast_floats(specs: Any, dtype: Optional[torch.dtype]) -> Any:
+    if dtype is None:
+        return specs
+    return map_leaves(lambda s: s._replace(dtype=dtype)
+                      if s.dtype.is_floating_point else s, specs)
+
+
+def build_program(arch: str, shape_name: str, mesh, opts=None,
+                  rules_override: Optional[Dict] = None,
+                  serve_param_dtype: Optional[torch.dtype] = None,
+                  device=None, shape: Optional[ShapeConfig] = None):
+    """The cell's ``StepProgram`` on ``mesh``, its rules and its options:
+    the step with the cell's sharder, the specs of its params (or train
+    state) and batch, and their production shardings.  ``shape``
+    replaces the cell's shape (a cell cut to fit one card)."""
+    cfg, shape = get_config(arch), shape or SHAPES[shape_name]
+    dev = torch.device(device or default_device(shape.kind))
+    rules = make_rules(cfg, shape, mesh)
+    if rules_override:
+        rules.mapping.update(rules_override)
+    sharder = MeshSharder(mesh, rules)
+    model = build_model(cfg)
+    opts = opts or cell_options(cfg, shape, mesh)
+    batch_specs = model.input_specs(shape)
+    batch_sh = sharder.batch_shardings(batch_specs)
+    if shape.kind == "train":
+        state_specs, state_axes = train_state_specs(model, opts)
+        fn = build_train_step(model, opts, sharder,
+                              param_axes=state_axes["params"])
+        first, first_sh = state_specs, sharder.param_shardings(state_axes)
+    else:
+        p_specs, p_axes = model.param_specs()
+        first = _cast_floats(p_specs, serve_param_dtype)
+        first_sh = sharder.param_shardings(p_axes)
+        fn = (build_prefill_step(model, sharder, chunk=opts.chunk,
+                                 seq_capacity=shape.seq_len)
+              if shape.kind == "prefill" else build_decode_step(model,
+                                                                sharder))
+    prog = StepProgram(f"{arch} {shape_name}", fn, (first, batch_specs),
+                       device=dev, mesh=mesh,
+                       in_shardings=(first_sh, batch_sh))
+    return prog, rules, opts
+
+
+def dryrun_cell(arch: str, shape_name: str, multi_pod: bool = False,
+                opts: Optional[TrainOptions] = None,
+                rules_override: Optional[Dict] = None,
+                mesh=None, serve_param_dtype: Optional[torch.dtype] = None,
+                device=None) -> Dict[str, Any]:
+    """One cell's result dict (the JAX dry run's keys).  Without ``mesh``
+    the production mesh is built over the default process group, which
+    must have 256 (or, ``multi_pod``, 512) ranks: ``fake_process_group``."""
+    cfg, shape = get_config(arch), SHAPES[shape_name]
+    tag = {"arch": arch, "shape": shape_name,
+           "mesh": "multi" if multi_pod else "single"}
+    ok, why = cell_runnable(cfg, shape)
+    if not ok:
+        return {**tag, "status": "skipped", "why": why}
+    dev = torch.device(device or default_device(shape.kind))
+    mesh = mesh or make_production_mesh(multi_pod=multi_pod,
+                                        device_type=dev.type)
+    n_dev = int(mesh.size())
+    t0 = time.perf_counter()
+    prog, rules, opts = build_program(arch, shape_name, mesh, opts,
+                                      rules_override, serve_param_dtype,
+                                      dev)
+    rep = DryRunBackend().run(prog)
+    trace_s = time.perf_counter() - t0
+    mem = {k: rep.memory[k] for k in ("argument_bytes", "output_bytes",
+                                      "temp_bytes", "alias_bytes")}
+    mem["per_device_total"] = (mem["argument_bytes"] + mem["output_bytes"]
+                               + mem["temp_bytes"] - mem["alias_bytes"])
+    mflops = model_flops(cfg, shape)
+    hlo_flops_global = rep.flops * n_dev
+    return {
+        **tag, "mesh_desc": describe(mesh), "status": "ok",
+        "kind": shape.kind, "device": dev.type, "trace_s": trace_s,
+        "memory": mem, "fits_hbm": mem["per_device_total"] <= HBM_BYTES,
+        "xla_cost_analysis": None,
+        "roofline": roofline_terms(rep, n_dev),
+        "collectives": rep.detail["collectives"],
+        "model_flops_global": mflops,
+        "hlo_flops_global": hlo_flops_global,
+        "useful_flops_ratio": (mflops / hlo_flops_global
+                               if hlo_flops_global else 0.0),
+        "top_dots": [[f, n] for f, n in rep.detail["top_dots"]],
+        "top_bytes": [[b, n] for b, n in rep.detail["top_bytes"]],
+        "rules": rules.describe(),
+        "kernels": rep.detail["kernels"],
+        "kernel_flops": _kernel_flops(rep),
+        "unknown_ops": rep.detail["unknown_ops"],
+        "replicated_kernels": replicated_kernels(cfg, shape, rules),
+        "options": {"accum_steps": opts.accum_steps,
+                    "moment_dtype": opts.moment_dtype, "chunk": opts.chunk},
+    }
+
+
+def _kernel_flops(rep: StepReport) -> Dict[str, float]:
+    """Per-device flops of each kernel's calls, by kernel."""
+    out: Dict[str, float] = {}
+    for name, flops, _ in rep.detail["ops"]:
+        if name.startswith("repro_torch."):
+            k = name.split(".")[1]
+            out[k] = out.get(k, 0.0) + flops
+    return out
+
+
+@contextlib.contextmanager
+def fake_process_group(world: int) -> Iterator[None]:
+    """PyTorch's fake process group of ``world`` ranks, this process rank
+    0 (its collectives return at once and move nothing), destroyed on
+    exit.  Raises if a process group is already initialised."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialised")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def run_matrix(single_pod_only: bool = False,
+               out_dir: str = "results/dryrun_torch", archs=None,
+               shapes=None, device=None, jobs: int = 1) -> list:
+    """Every (arch x shape) cell on the single-pod mesh and, unless
+    ``single_pod_only``, the multi-pod one, each mesh under its own fake
+    process group; one JSON file a cell and ``summary.json`` in
+    ``out_dir``.  ``jobs`` > 1 spreads the cells over that many worker
+    processes, each with its own fake process group (the cells share
+    nothing).  Exits 1 if a cell FAILED."""
+    os.makedirs(out_dir, exist_ok=True)
+    archs = archs or sorted(REGISTRY)
+    shapes = shapes or list(SHAPES)
+    rows = []
+    for multi in ([False] if single_pod_only else [False, True]):
+        cells = [(arch, shape, multi, device, out_dir)
+                 for arch in archs for shape in shapes]
+        if jobs > 1:
+            import concurrent.futures
+            import multiprocessing
+            with concurrent.futures.ProcessPoolExecutor(
+                    jobs, mp_context=multiprocessing.get_context("spawn"),
+                    initializer=_start_worker,
+                    initargs=(512 if multi else 256,)) as pool:
+                rows += list(pool.map(_matrix_cell, cells))
+        else:
+            with fake_process_group(512 if multi else 256):
+                rows += [_matrix_cell(c) for c in cells]
+            _MESHES.clear()
+    n_ok = sum(r["status"] == "ok" for r in rows)
+    n_skip = sum(r["status"] == "skipped" for r in rows)
+    n_fail = sum(r["status"] == "FAILED" for r in rows)
+    print(f"\n== dry-run matrix: {n_ok} ok / {n_skip} skipped "
+          f"(documented) / {n_fail} FAILED ==")
+    with open(os.path.join(out_dir, "summary.json"), "w") as f:
+        json.dump(rows, f, indent=1)
+    if n_fail:
+        raise SystemExit(1)
+    return rows
+
+
+_MESHES: Dict[str, Any] = {}        # a process's production meshes
+
+
+def _start_worker(world: int) -> None:
+    """A matrix worker's fake process group, for the process's life."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+
+
+def _matrix_cell(cell) -> Dict[str, Any]:
+    """One cell of the matrix under the process's fake process group,
+    its JSON written and its line printed; an exception is the cell's
+    FAILED status."""
+    arch, shape, multi, device, out_dir = cell
+    tag = f"{arch}__{shape}__{'multi' if multi else 'single'}"
+    dev = device or default_device(SHAPES[shape].kind)
+    try:
+        key = f"{dev} {multi}"
+        if key not in _MESHES and cell_runnable(get_config(arch),
+                                                SHAPES[shape])[0]:
+            _MESHES[key] = make_production_mesh(
+                multi_pod=multi, device_type=torch.device(dev).type)
+        res = dryrun_cell(arch, shape, multi, mesh=_MESHES.get(key),
+                          device=dev)
+    except Exception as e:  # a failure is a sharding bug
+        res = {"arch": arch, "shape": shape,
+               "mesh": "multi" if multi else "single",
+               "status": "FAILED", "error": repr(e)[:500]}
+    with open(os.path.join(out_dir, tag + ".json"), "w") as f:
+        json.dump(res, f, indent=1)
+    print(summary_line(tag, res), flush=True)
+    return res
+
+
+def summary_line(tag: str, res: Dict[str, Any]) -> str:
+    if res["status"] != "ok":
+        return (f"{tag:55s} {res['status']}: "
+                f"{res.get('why', res.get('error', ''))[:110]}")
+    r = res["roofline"]
+    return (f"{tag:55s} ok  trace={res['trace_s']:6.1f}s "
+            f"mem={res['memory']['per_device_total'] / 1e9:6.2f}GB "
+            f"dom={r['dominant']:10s} bound={r['bound_s']:9.4f}s "
+            f"useful={res['useful_flops_ratio']:.2f}")
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=sorted(REGISTRY))
+    ap.add_argument("--shape", choices=list(SHAPES))
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--single-pod-only", action="store_true")
+    ap.add_argument("--out", default="results/dryrun_torch")
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="worker processes for --all (default 1)")
+    ap.add_argument("--device", choices=("cuda", "cpu"),
+                    help="the fake tensors' device (default: cuda, and cpu "
+                         "for train cells on a host with no card)")
+    args = ap.parse_args(argv)
+    if args.all:
+        run_matrix(args.single_pod_only, args.out, device=args.device,
+                   jobs=args.jobs)
+        return
+    if not args.arch or not args.shape:
+        ap.error("--arch/--shape required unless --all")
+    with fake_process_group(512 if args.multi_pod else 256):
+        res = dryrun_cell(args.arch, args.shape, args.multi_pod,
+                          device=args.device)
+    print(json.dumps(res, indent=1))
+
+
+if __name__ == "__main__":
+    main()

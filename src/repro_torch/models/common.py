@@ -210,6 +210,13 @@ class Sharder:
     def scope(self) -> contextlib.AbstractContextManager:
         return contextlib.nullcontext()
 
+    def layer_stacks(self, cache: Tree) -> Tree:
+        """A stacked cache (leaves (layers, batch, ...)) laid out for a
+        decode step's layer-by-layer views (on a mesh, a layer dim split
+        over ranks moves its split to the batch dim); here ``cache``
+        itself, whose leaves the step then writes in place."""
+        return cache
+
     def write_kv_(self, ck: torch.Tensor, cv: torch.Tensor,
                   slot: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                   ) -> None:

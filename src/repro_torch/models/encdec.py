@@ -104,7 +104,8 @@ def encode(params: Dict, enc_embeds: torch.Tensor, cfg, mode: str = "prefill",
     params' dtype -> the encoder output (b, enc_seq, d)."""
     x = sharder.ac(enc_embeds + params["enc_pos"], ("batch", "seq", None))
     b, s, _ = x.shape
-    positions = torch.arange(s, device=x.device).expand(b, s)
+    positions = sharder.ac(torch.arange(s, device=x.device).expand(b, s),
+                           ("batch", None))
     for lp in _unstack(params["enc_layers"], cfg.enc_layers):
         if mode == "train":
             x = checkpoint(_enc_layer, lp, x, cfg, positions, mode, chunk,
@@ -201,6 +202,8 @@ def dec_forward(params: Dict, x: torch.Tensor, enc_out, cfg, positions,
     seq_capacity = seq_capacity or x.shape[1]
     n = cfg.n_layers
     layers = _unstack(params["dec_layers"], n)
+    if mode == "decode":
+        cache = sharder.layer_stacks(cache)
     caches = _layer_views(cache, n) if mode == "decode" else [None] * n
     new = []
     for lp, lc in zip(layers, caches):
@@ -248,7 +251,8 @@ def encdec_apply(params: Dict, batch: Dict, cfg, mode: str = "prefill",
         enc_out = encode(params, batch["enc_embeds"].to(compute_dtype), cfg,
                          mode, chunk, sharder)
         s = tokens.shape[1]
-        positions = embed_pos = torch.arange(s, device=dev).expand(b, s)
+        positions = embed_pos = sharder.ac(
+            torch.arange(s, device=dev).expand(b, s), ("batch", None))
     x = ll.embed_tokens(params["embed"], tokens, cfg, positions=embed_pos)
     x = sharder.ac(x, ("batch", "seq", None))
     x, new_cache = dec_forward(params, x, enc_out, cfg, positions, mode,

@@ -14,11 +14,14 @@ last argument, the identity by default).
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -162,6 +165,46 @@ def qkv_project(p: Dict, x: torch.Tensor, cfg, positions: torch.Tensor,
     return q, k, v
 
 
+def per_shard(fn, roles, out_roles, *args):
+    """``fn(*args)``, or on a mesh ``fn`` on each rank's shards of them
+    (``local_map``): for functions whose rows and heads are independent,
+    attention's cores.  ``roles`` names each dim of each argument ("b"
+    batch, "s" query rows, "h" heads, None for a dim that must stay
+    whole; None for an argument that is no tensor) and ``out_roles`` the
+    output's.  The first argument's layout decides: a mesh dim that
+    splits its dim of role r splits every argument's dim of role r, and
+    leaves whole an argument with no such dim.  DTensor cannot merge two
+    dims split over two mesh dims (torch 2.11 refuses the batched
+    matmuls' merge of batch and heads), which running on the local
+    shards never asks of it."""
+    lead = args[0]
+    if not isinstance(lead, DTensor):
+        return fn(*args)
+    mesh = lead.device_mesh
+    split = [roles[0][p.dim] if p.is_shard() else None
+             for p in lead.placements]
+
+    def layout(r):
+        return tuple(Shard(r.index(x)) if x is not None and x in r
+                     else Replicate() for x in split)
+    reps = [Replicate()] * mesh.ndim
+    args = [DTensor.from_local(a, mesh, reps, run_check=False)
+            if r is not None and not isinstance(a, DTensor) else a
+            for a, r in zip(args, roles)]
+    return local_map(fn, out_placements=list(layout(out_roles)),
+                     in_placements=tuple(layout(r) if r is not None
+                                         else None for r in roles),
+                     device_mesh=mesh, redistribute_inputs=True)(*args)
+
+
+# the roles of attention's arguments for ``per_shard``: q (b, sq, h, hd),
+# k and v (b, skv, h, hd) with every key whole, positions (b, sq) and
+# (b, skv)
+_ATTN_ROLES = (("b", "s", "h", None), ("b", None, "h", None),
+               ("b", None, "h", None), ("b", "s"), ("b", None))
+_ATTN_OUT = ("b", "s", "h", None)
+
+
 def _mask(scores, q_pos, kv_pos, window: int):
     """Causal by position (and within ``window``): masked scores."""
     mask = kv_pos[:, None, None, :] <= q_pos[:, None, :, None]
@@ -238,12 +281,14 @@ def attention_train(p: Dict, x: torch.Tensor, cfg, positions: torch.Tensor,
     the flash kernel on any other device (which raises for a device it
     has no kernel for).  Both mask by position, as JAX does: by the
     temporal coordinate of M-RoPE positions (b, s, 3).  The kernel takes
-    the unrepeated kv heads and masks by index: prefill positions are
-    ``0..s-1``, or for M-RoPE (``make_positions``) ``n_vis`` vision
-    tokens at temporal position 0 followed by the text at its index, so
-    a key is visible where its index is at most the query's or below
-    ``n_vis`` (the kernel's ``prefix``).  ``return_kv`` also returns the
-    pre-repeat (b, s, kvh, hd) k and v.
+    the unrepeated kv heads (repeated only on a mesh that splits the
+    query heads and not the kv heads) and masks by index: prefill
+    positions are ``0..s-1``, or for M-RoPE (``make_positions``)
+    ``n_vis`` vision tokens at temporal position 0 followed by the text
+    at its index, so a key is visible where its index is at most the
+    query's or below ``n_vis`` (the kernel's ``prefix``).  On a mesh the
+    plain branches run on each rank's shards (``per_shard``).
+    ``return_kv`` also returns the pre-repeat (b, s, kvh, hd) k and v.
 
     ``kv = (k, v, kv_pos)``, keys and values computed elsewhere (the
     encoder's own, or the encoder output's for the decoder's cross
@@ -280,7 +325,12 @@ def attention_train(p: Dict, x: torch.Tensor, cfg, positions: torch.Tensor,
         k, v, kv_pos = kv
     cross = kv is not None
     plain = mode == "train" or x.device.type == "cpu"
-    if plain:
+    if plain or (sharder.axis_size("heads") > 1
+                 and sharder.axis_size("kv_heads") == 1):
+        # on a mesh that splits the query heads but not the kv heads
+        # (GQA), the kernel too takes k and v repeated to the query heads,
+        # as JAX does: each rank then holds its heads' k and v, and the
+        # local call is MHA with JAX's per-device flops
         k, v = _repeat_kv(k, cfg.n_heads), _repeat_kv(v, cfg.n_heads)
     q = sharder.ac(q, ("batch", "q_seq", "heads", None))
     k = sharder.ac(k, ("batch", None, "heads", None))
@@ -290,12 +340,13 @@ def attention_train(p: Dict, x: torch.Tensor, cfg, positions: torch.Tensor,
                               window=0 if cross else cfg.sliding_window,
                               prefix=n_vis)
     elif k.shape[1] > chunk:
-        out = blockwise_attention(q, k, v, q_pos, kv_pos,
-                                  window=cfg.sliding_window, chunk=chunk,
-                                  cross=cross)
+        out = per_shard(functools.partial(
+            blockwise_attention, window=cfg.sliding_window, chunk=chunk,
+            cross=cross), _ATTN_ROLES, _ATTN_OUT, q, k, v, q_pos, kv_pos)
     else:
-        out = naive_causal_attention(q, k, v, q_pos, kv_pos,
-                                     window=cfg.sliding_window, cross=cross)
+        out = per_shard(functools.partial(
+            naive_causal_attention, window=cfg.sliding_window, cross=cross),
+            _ATTN_ROLES, _ATTN_OUT, q, k, v, q_pos, kv_pos)
     out = sharder.ac(out, ("batch", "seq", None, None))
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     if return_kv:
@@ -367,21 +418,47 @@ def attention_decode(p: Dict, x: torch.Tensor, cfg, cache: Dict,
     ck = sharder.ac(ck, ("batch", "kv_heads_c", "kv_seq", None))
     cv = sharder.ac(cv, ("batch", "kv_heads_c", "kv_seq", None))
 
-    kvh = cfg.n_kv_heads
-    g = cfg.n_heads // kvh
-    qg = q.reshape(b, kvh, g, hd)
+    n_valid = torch.clamp(cur_len + 1, max=S)
+    if sharder.axis_size("heads") > 1 and sharder.axis_size("kv_heads") == 1:
+        # GQA on a mesh that splits the query heads and not the kv heads:
+        # the split heads do not fold into (kvh, g), and each rank attends
+        # every head over the slots it holds ("kv_seq") or over all of
+        # them, so q is whole there
+        q = sharder.ac(q, ("batch", None, None, None))
+    if isinstance(ck, DTensor) and any(p.is_shard(2) for p in ck.placements):
+        # slots split ("kv_seq"): the max, sums and product over them
+        # reduce across ranks, which DTensor does
+        out = _decode_attention(ck, cv, q, n_valid)
+    else:
+        out = per_shard(_decode_attention, _DECODE_ROLES,
+                        ("b", None, "h", None), ck, cv, q, n_valid)
+    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return y, cache
+
+
+# the roles of ``_decode_attention``'s arguments for ``per_shard``: the
+# caches (b, kvh, S, hd) with every slot whole, q (b, 1, h, hd) split
+# with the kv heads (a rank's kv heads hold its query heads), the lengths
+_DECODE_ROLES = (("b", "h", None, None), ("b", "h", None, None),
+                 ("b", None, "h", None), ("b",))
+
+
+def _decode_attention(ck, cv, q, n_valid):
+    """One token's attention over the caches ck, cv (b, kvh, S, hd), its
+    q (b, 1, h, hd) grouped by kv head, slots below ``n_valid`` (b,)
+    visible -> (b, 1, h, hd)."""
+    b, kvh, S, hd = ck.shape
+    h = q.shape[2]
+    qg = q.reshape(b, kvh, h // kvh, hd)
     scores = torch.einsum("bkgd,bksd->bkgs", qg, ck).float()
     scores = scores / math.sqrt(hd)
-    n_valid = torch.clamp(cur_len + 1, max=S)
-    valid = torch.arange(S, device=x.device)[None, :] < n_valid[:, None]
+    valid = torch.arange(S, device=ck.device)[None, :] < n_valid[:, None]
     scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
     m = scores.amax(dim=-1, keepdim=True)
     e = torch.exp(scores - m)
     probs = e / e.sum(dim=-1, keepdim=True)
-    out = torch.einsum("bkgs,bksd->bkgd", probs.to(x.dtype), cv)
-    out = out.reshape(b, 1, cfg.n_heads, hd)
-    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
-    return y, cache
+    out = torch.einsum("bkgs,bksd->bkgd", probs.to(q.dtype), cv)
+    return out.reshape(b, 1, h, hd)
 
 
 # ---------------------------------------------------------------------------
@@ -455,12 +532,15 @@ def init_embedding(gen: torch.Generator, cfg) -> Dict:
 def embed_tokens(p: Dict, tokens: torch.Tensor, cfg,
                  positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Token embeddings, plus ``pos_table[positions]`` (b, s) with learned
-    positions."""
-    x = p["table"][tokens]
+    positions.  The rows are gathered by ``F.embedding`` (JAX's
+    ``table[tokens]``): its backward, a dense embedding gradient, has a
+    DTensor strategy in torch 2.11, where indexing's (an ``index_put``)
+    fails on batch-split tokens."""
+    x = F.embedding(tokens, p["table"])
     if cfg.tie_embeddings:
         x = x * math.sqrt(cfg.d_model)    # minicpm-style embedding scale
     if cfg.pos_scheme == "learned" and positions is not None:
-        x = x + p["pos_table"][positions]
+        x = x + F.embedding(positions, p["pos_table"])
     return x
 
 
@@ -474,18 +554,41 @@ def unembed(p: Dict, x: torch.Tensor, cfg,
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, cfg,
-                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  mask: Optional[torch.Tensor] = None,
+                  sharder: Sharder = IDENTITY_SHARDER) -> torch.Tensor:
     """Mean next-token cross entropy in f32; the padded vocab entries are
-    masked out; logits (b, s, Vp)."""
+    masked out; logits (b, s, Vp).
+
+    On a mesh (DTensor logits) the label's logit is picked by a one-hot
+    of the vocab ids laid out like the logits: its backward stays on
+    each rank's rows and vocab slice, where ``gather``'s backward builds
+    a zero gradient of the global logits' shape on every rank.  A mesh
+    that splits the vocab also keeps the log-sum-exp's reductions split:
+    spelled out as ``torch.logsumexp`` computes it (max, then the sum of
+    exponentials), each rank reduces its slice and DTensor combines the
+    partial results.  The values are those of the plain path, bit for
+    bit on the CPU (a one-hot pick adds only zeros to the label's
+    logit)."""
     vp = logits.shape[-1]
     logits = logits.float()
     if vp != cfg.vocab_size:
         pad_mask = torch.arange(vp, device=logits.device) < cfg.vocab_size
         logits = torch.where(pad_mask, logits, NEG_INF)
+    labels = labels.long()[..., None]
+    if sharder.axis_size("vocab") > 1:
+        m = logits.detach().amax(dim=-1, keepdim=True)
+        lse = (logits - m).exp().sum(dim=-1, keepdim=True).log() + m
+    else:
+        lse = torch.logsumexp(logits, dim=-1, keepdim=True)
+    if isinstance(logits, DTensor):
+        ids = sharder.ac(torch.arange(vp, device=logits.device), ("vocab",))
+        picked = torch.where(ids == labels, logits, 0.0).sum(dim=-1,
+                                                             keepdim=True)
+    else:
+        picked = torch.gather(logits, -1, labels)
     # the difference is taken before the label dim is dropped: on logits
     # split over the vocab, DTensor sums the gathered shards at this shape
-    lse = torch.logsumexp(logits, dim=-1, keepdim=True)
-    nll = (lse - torch.gather(logits, -1, labels.long()[..., None]))[..., 0]
+    nll = (lse - picked)[..., 0]
     if mask is None:
         return nll.mean()
     mask = mask.float()

@@ -85,8 +85,12 @@ def route_topk(logits: torch.Tensor, k: int
 
 def load_balance_loss(probs: torch.Tensor, idx: torch.Tensor,
                       n_experts: int) -> torch.Tensor:
-    """Switch-style aux loss: E * sum_e f_e * P_e."""
-    one_hot = F.one_hot(idx, n_experts).float()            # (..., k, E)
+    """Switch-style aux loss: E * sum_e f_e * P_e.  The one-hot is a
+    comparison with the expert ids, as ``jax.nn.one_hot`` computes it
+    (``F.one_hot`` reads the indices' range back on the CPU, which a
+    fake tensor cannot give)."""
+    experts = torch.arange(n_experts, device=idx.device)
+    one_hot = (idx[..., None] == experts).float()          # (..., k, E)
     f = one_hot.sum(dim=-2).mean(dim=tuple(range(one_hot.dim() - 2)))
     f = f / one_hot.shape[-2]
     P = probs.mean(dim=tuple(range(probs.dim() - 1)))

@@ -21,6 +21,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor.experimental import register_sharding
 
 from repro_torch.kernels.rwkv6_wkv.ops import wkv6_state
 from repro_torch.models.common import IDENTITY_SHARDER, Sharder, param
@@ -28,6 +30,20 @@ from repro_torch.models.layers import _silu
 
 LORA_R = 32       # low-rank size of the data-dependent mix/decay MLPs
 MIX_KINDS = 5     # r, k, v, g, w
+
+
+@register_sharding(torch.ops.aten.flip.default)
+def _flip_sharding(x, dims):
+    """One mesh dim's layouts of ``flip(x, dims)``, which the backward of
+    the chunked scan's ``cumsum`` dispatches (torch 2.11's DTensor has
+    none): all replicated, or split along a dim it does not flip (each
+    shard flips alone)."""
+    flipped = {d % x.ndim for d in dims}
+    out = [([Replicate()], [Replicate(), None])]
+    for d in range(x.ndim):
+        if d not in flipped:
+            out.append(([Shard(d)], [Shard(d), None]))
+    return out
 
 
 def init_rwkv_block(gen: Optional[torch.Generator], cfg) -> Dict:

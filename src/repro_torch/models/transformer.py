@@ -315,6 +315,7 @@ def decoder_forward(layers_params, x: torch.Tensor, cfg, positions,
     stacks = layers_params if hybrid else (layers_params,)
     per_layer = [_unstack(t, n_steps) for t in stacks]
     if mode == "decode":
+        cache = sharder.layer_stacks(cache)
         caches = [_layer_views(c, n_steps) for c in (cache if hybrid
                                                      else (cache,))]
     else:
@@ -388,6 +389,10 @@ def lm_apply(params: Dict, batch: Dict, cfg, mode: str = "prefill",
     positions = None
     if mode != "decode":
         positions = make_positions(cfg, b, s, tokens.device, n_vis=n_vis)
+        # laid out by batch, as XLA propagates them from their uses: on a
+        # mesh the RoPE angles made from them are then each rank's rows
+        positions = sharder.ac(positions, ("batch",)
+                               + (None,) * (positions.dim() - 1))
     x = sharder.ac(x, ("batch", "seq", None))
     x, new_cache, aux = decoder_forward(
         params["layers"], x, cfg, positions, mode=mode, cache=cache,

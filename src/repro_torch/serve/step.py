@@ -32,6 +32,9 @@ def build_decode_step(model: Model, sharder: Sharder = IDENTITY_SHARDER
         logits, cache = model.decode(params, {"tokens": batch["tokens"]},
                                      batch["cache"], batch["cur_len"],
                                      sharder=sharder)
-        nxt = torch.argmax(logits[:, -1].float(), dim=-1)[:, None]
+        # the vocab whole on each rank first: DTensor's argmax over a
+        # split vocab (torch 2.13) fails for a batch of one
+        last = sharder.ac(logits[:, -1].float(), ("batch", None))
+        nxt = torch.argmax(last, dim=-1)[:, None]
         return nxt, logits, cache
     return decode_step

@@ -135,7 +135,7 @@ def loss_and_grads(model: Model, opts: TrainOptions, params: Dict,
         logits, aux = model.train_logits(params, batch, chunk=opts.chunk,
                                          sharder=sharder)
         loss = cross_entropy(logits, batch["labels"], model.cfg,
-                             mask=batch.get("mask"))
+                             mask=batch.get("mask"), sharder=sharder)
         total = loss + opts.aux_weight * aux
     grads = torch.autograd.grad(total, list(leaves(params)),
                                 allow_unused=True, materialize_grads=True)
@@ -162,9 +162,13 @@ def build_train_step(model: Model, opts: Optional[TrainOptions] = None,
         return map_leaves(sharder.ac, grads, param_axes)
 
     def microbatches(batch):
+        # microbatch i is rows [i m, (i + 1) m), as the JAX step's reshape
+        # to (a, m, ...) gives; a slice, which DTensor takes on a batch
+        # split over the data-parallel ranks (a reshape of that split dim
+        # into a < ranks pieces it refuses)
         a = opts.accum_steps
         for i in range(a):
-            yield {k: (v.reshape((a, v.shape[0] // a) + tuple(v.shape[1:]))[i]
+            yield {k: (v.narrow(0, i * (v.shape[0] // a), v.shape[0] // a)
                        if v.dim() else v) for k, v in batch.items()}
 
     def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]

@@ -26,6 +26,10 @@ from repro_torch.train import (TrainOptions, build_train_step,
                                init_train_state, lr_at, train_state_specs)
 
 ARCHS = sorted(REGISTRY)
+# kv heads that do not divide "model": the decode rules split the cache
+# along its slots ("kv_seq")
+KV_SEQ_ARCHS = ("deepseek-67b", "qwen2-vl-7b")
+KV_SEQ_STEPS = 8
 TRAIN_ARCHS = ("stablelm-1.6b", "olmoe-1b-7b")
 RESTORE_MESHES = ((4, 1), (1, 4))
 WORLD = 4
@@ -89,6 +93,38 @@ def _serve(arch, mesh):
     return {"prefill": _rel(got, want), "decode": _rel(got_d, want_d),
             "dtensor": type(got).__name__,
             "placements": [str(p) for p in got.placements]}
+
+
+def _serve_kv_seq(arch, mesh):
+    """Prefill and KV_SEQ_STEPS decode steps under the decode rules of a
+    cache of CAP slots, against plain: the cache is split along its
+    slots, and the steps write past the prefill into the ring buffer's
+    wrap (slots 16-19, then 0-3: both ranks' ranges)."""
+    cfg = smoke(get_config(arch))
+    model = build_model(cfg, torch.float32)
+    params = model.init(0, "cpu")
+    sh = _sharder(cfg, mesh, B, CAP, "decode")
+    dparams = sh.distribute(params, sh.param_shardings(model.param_specs()[1]))
+    batch = _batch(cfg, B, S, 1)
+    g = torch.Generator().manual_seed(2)
+    toks = [torch.randint(0, cfg.vocab_size, (B, 1), generator=g)
+            for _ in range(KV_SEQ_STEPS)]
+    with torch.no_grad():
+        want, cache = model.prefill(params, batch, seq_capacity=CAP)
+        got, dcache = model.prefill(dparams, batch, seq_capacity=CAP,
+                                    sharder=sh)
+        split_dims = [p.dim for p in dcache["k"].placements if p.is_shard()]
+        errs = [_rel(got, want)]
+        for i, tok in enumerate(toks):
+            want, cache = model.decode(params, {"tokens": tok}, cache, S + i)
+            got, dcache = model.decode(dparams, {"tokens": tok}, dcache,
+                                       S + i, sharder=sh)
+            errs.append(_rel(got, want))
+        cache_err = max(float((dcache[n].full_tensor() - cache[n]).abs().max())
+                        for n in ("k", "v"))
+    return {"rules_kv_seq": sh.rules.mapping["kv_seq"],
+            "cache_split_dims": split_dims, "errs": errs,
+            "cache_err": cache_err}
 
 
 def _train(arch, mesh, out: Path):
@@ -310,6 +346,8 @@ def _worker(rank, store, out):
         t0 = time.perf_counter()
         for arch in ARCHS:
             _case(results, f"serve/{arch}", _serve, arch, mesh)
+        for arch in KV_SEQ_ARCHS:
+            _case(results, f"kv_seq/{arch}", _serve_kv_seq, arch, mesh)
         for arch in TRAIN_ARCHS:
             _case(results, f"train/{arch}", _train, arch, mesh, out)
         _case(results, "jax_logits", _jax_logits, mesh, out)

@@ -319,7 +319,12 @@ def test_prefill_on_fake_cuda_counts_the_kernel_ops(arch, want, monkeypatch):
     plain = sum(_plain_flops(n, a) for n, a, _ in calls)
     assert reps["cpu"].flops == pytest.approx(
         reps["cuda"].flops - kernel_flops + plain, rel=1e-9)
-    assert reps["cuda"].memory == reps["cpu"].memory
+    for key in ("argument_bytes", "output_bytes", "alias_bytes"):
+        assert reps["cuda"].memory[key] == reps["cpu"].memory[key], key
+    # the peak: the plain path holds what the kernels keep on chip (the
+    # attention scores, the expert FFN's hidden layer, the scan's chunks)
+    assert 0 < reps["cuda"].memory["temp_bytes"] \
+        < reps["cpu"].memory["temp_bytes"]
 
 
 def _refuse(*a, **kw):

@@ -294,14 +294,16 @@ class Block:
 sys.meta_path.insert(0, Block())
 import torch.distributed as dist
 import repro_torch.dist.sharding, repro_torch.launch.mesh
+import repro_torch.launch.dryrun
 print("OK", dist.is_initialized(),
       any("fake_pg" in n for n in sys.modules))
 """
 
 
 def test_sharding_and_mesh_import_with_no_process_group():
-    """``dist/sharding.py`` and ``launch/mesh.py`` import with ``jax`` and
-    ``repro`` blocked, create no process group and load no fake one."""
+    """``dist/sharding.py``, ``launch/mesh.py`` and ``launch/dryrun.py``
+    import with ``jax`` and ``repro`` blocked, create no process group and
+    load no fake one (the dry run starts it inside a function)."""
     out = subprocess.run(
         [sys.executable, "-c", MESH_BLOCKED], capture_output=True,
         text=True, timeout=120,

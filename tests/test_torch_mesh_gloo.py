@@ -8,6 +8,9 @@ never share a rendezvous).  f32 compute at smoke size.
   decode step with the sharder; the ``full_tensor()`` logits match the
   unsharded port within 1e-5 of the largest logit (f32: DTensor sums
   partial products in other orders; seen ~1e-6).
+* smoke deepseek-67b and qwen2-vl-7b (1 kv head) under the decode rules:
+  the cache split along its slots, a prefill and 8 decode steps within
+  1e-5 of the unsharded port.
 * stablelm and olmoe: one train step with ``grad_compress`` on DTensor
   state against the plain step (see ``test_train_step_matches`` for the
   bounds).
@@ -103,6 +106,25 @@ def test_sharded_prefill_and_decode_match_unsharded(run, arch):
     assert r["dtensor"] == "DTensor"
     assert r["prefill"] <= gw.LOGIT_TOL, r
     assert r["decode"] <= gw.LOGIT_TOL, r
+
+
+@pytest.mark.parametrize("arch", gw.KV_SEQ_ARCHS)
+def test_decode_rules_split_the_cache_along_its_slots(run, arch):
+    """Under the decode rules of a cache whose kv heads (1) do not divide
+    "model" (2), the cache is split along its slots ("kv_seq"): each
+    rank writes the slots it holds, and the decode attention's max, sum
+    and product over the slots reduce across the ranks.  The prefill
+    and 8 decode steps (past the ring buffer's wrap) within 1e-5 of the
+    largest logit of the unsharded port; the cache equal to the plain
+    one's within 1e-5."""
+    r = _ok(run[0], f"kv_seq/{arch}")
+    assert r["rules_kv_seq"] == ("model",), r
+    # the stacked cache (L, b, kvh, S, hd): batch over "data", slots over
+    # "model"
+    assert r["cache_split_dims"] == [1, 3], r
+    assert len(r["errs"]) == 1 + gw.KV_SEQ_STEPS
+    assert max(r["errs"]) <= gw.LOGIT_TOL, r
+    assert r["cache_err"] <= 1e-5, r
 
 
 @pytest.mark.parametrize("arch", gw.TRAIN_ARCHS)
