@@ -37,7 +37,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
                without a vision prefix (keys below the prefix visible to
                every row), and whisper-small's heads not causal over 1500
                keys (its encoder, and cross attention from 1, 129 and 416
-               queries); moe_mlp over its sweep of
+               queries); flash on a slice of query rows with their
+               offset (q_offset: causal, windowed, with a prefix, d=64
+               and 128), each shard of a split sequence against those
+               rows of the whole call (bit for bit counted), and qwen2-vl-
+               7b's last context-parallel shard (2048 rows of 32768 keys)
+               timed against its bound and SDPA with the mask; moe_mlp
+               over its sweep of
                tests/test_kernels.py and olmoe's widths at the ragged
                capacities its prefill and decode give, decode steps of
                4 and 8 slots and of C > 1 folded into one row tile, then at
@@ -186,14 +192,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
                under PyTorch's fake process group on fake CUDA tensors, on
                the (16, 16) mesh (stablelm-1.6b train_4k, olmoe-1b-7b
                prefill_32k, deepseek-67b prefill_32k and decode_32k,
-               qwen2-vl-7b prefill_32k, jamba-v0.1-52b long_500k) and the
+               qwen2-vl-7b, minicpm-2b and whisper-small prefill_32k,
+               jamba-v0.1-52b long_500k) and the
                (2, 16, 16) one (olmoe-1b-7b prefill_32k): each ok, one JSON
                line each (per-device GB, fits_hbm, the dominant roofline
                term and bound, useful flops, collective bytes by kind,
-               kernel ops, host seconds); where the rules split the heads,
+               kernel ops, host seconds), each costed as the last rank
+               along "model"; no cell replicates a kernel or moves a
+               stacked layer leaf whole; where the rules split the heads,
                the per-device flash flops times the ranks that split them
-               equal the global flash flops, and qwen2-vl-7b's
-               context-parallel cell names flash as replicated over "model"
+               equal the global flash flops, and where they split the
+               query rows (qwen2-vl-7b's, minicpm-2b's and whisper-small's
+               context-parallel prefills), the costed rank's (the last
+               rows) times those ranks are at least the global flops
 
 Every kernel's bound is its ``cost`` (flops, bytes) in its ``ops.py``, the
 definition the dry run's kernel ops are costed by.  It prints the fidelity,
@@ -356,7 +367,10 @@ MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS = 2, 2
 # decoding at batch 4 against its 32768-slot cache, 17.2 GB in bf16, with
 # 27.7 GB of f32 params: moe_mlp), the predicted peak held against
 # DRYRUN_PEAK_BOUND (PERF.md); then production cells on the (16, 16) and
-# (2, 16, 16) meshes of PyTorch's fake process group, on fake CUDA tensors
+# (2, 16, 16) meshes of PyTorch's fake process group, on fake CUDA tensors,
+# each costed as the last rank along "model" (qwen2-vl-7b's, minicpm-2b's
+# and whisper-small's prefills split their query rows over it: that rank
+# holds the heaviest rows)
 DRYRUN_NATIVE = [("stablelm-1.6b", "prefill_32k", 1),
                  ("olmoe-1b-7b", "decode_32k", 4)]
 DRYRUN_PEAK_BOUND = (0.9, 1.1)
@@ -365,6 +379,8 @@ DRYRUN_CELLS = [(False, [("stablelm-1.6b", "train_4k"),
                          ("deepseek-67b", "prefill_32k"),
                          ("deepseek-67b", "decode_32k"),
                          ("qwen2-vl-7b", "prefill_32k"),
+                         ("minicpm-2b", "prefill_32k"),
+                         ("whisper-small", "prefill_32k"),
                          ("jamba-v0.1-52b", "long_500k")]),
                 (True, [("olmoe-1b-7b", "prefill_32k")])]
 # each wrapper's custom op, by the counters' names
@@ -677,6 +693,41 @@ def decode_ab(torch, np, card: str, src: Path, parent: Path,
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# the kernel on a slice of query rows with their offset (context
+# parallelism): (b, n, h, kvh, d, window, prefix, s_kv, q_offset), rows
+# [q_offset, q_offset + n) of a sequence of s_kv keys; causal at offsets
+# on and off the 128-row tiles, the last rows, windows that reach back
+# past the offset, qwen2-vl-7b's GQA 28/4 with its 256-key prefix (rows
+# inside and past it), one row, and not causal (window None: the offset
+# masks nothing)
+OFFSET_SWEEP = [(1, 256, 4, 4, 64, 0, 0, 512, 256),
+                (2, 200, 4, 2, 64, 0, 0, 1000, 800),
+                (1, 300, 4, 2, 128, 0, 0, 1024, 500),
+                (1, 128, 16, 16, 128, 0, 0, 2048, 1920),
+                (1, 257, 4, 2, 64, 100, 0, 700, 300),
+                (1, 200, 4, 2, 128, 64, 0, 513, 313),
+                (1, 128, 28, 4, 128, 0, 256, 512, 128),
+                (1, 300, 4, 2, 64, 0, 256, 1024, 100),
+                (1, 129, 28, 4, 128, 0, 256, 2048, 1919),
+                (1, 1, 4, 4, 64, 0, 0, 777, 776),
+                (1, 129, 12, 12, 64, None, 0, 1500, 640)]
+# the rows of one sequence split over ranks, each shard run with its
+# offset and held against those rows of the whole call: (b, s, h, kvh,
+# d, prefix, window, shards), shards as (q_offset, n); tile-aligned and
+# ragged splits
+SHARD_ROWS = [(1, 2048, 32, 32, 64, 0, 0, [(o, 128) for o in
+                                           range(0, 2048, 128)]),
+              (1, 2048, 28, 4, 128, 256, 0, [(0, 700), (700, 700),
+                                             (1400, 648)]),
+              (1, 1000, 4, 2, 128, 0, 100, [(0, 250), (250, 250),
+                                            (500, 250), (750, 250)])]
+# qwen2-vl-7b's prefill_32k on the (16, 16) mesh splits each sequence's
+# 32768 query rows over the 16 ranks of "model": the last rank's shard,
+# the heaviest, with every key and the 256-key vision prefix
+CP_SHARD = dict(b=1, s=2048, s_kv=32768, q_offset=30720, h=28, kvh=4,
+                d=128, prefix=256)
+
+
 def phase_sweep(torch, ops) -> None:
     sweep = [(2, 256, 4, 4, 64, 0), (1, 512, 2, 2, 128, 0),
              (2, 256, 4, 4, 64, 128), (1, 128, 8, 8, 32, 0),
@@ -742,6 +793,114 @@ def phase_sweep(torch, ops) -> None:
             print(f"sweep {case}: max_abs_err={float(err.max()):.3e} "
                   f"tol={TOL[name]} {'ok' if ok else 'FAIL'}")
             check(ok, f"kernel disagrees with its plain version ({case})")
+        for b, n, h, kvh, d, win, prefix, s_kv, off in OFFSET_SWEEP:
+            q = torch.randn(b, n, h, d, generator=gen, device="cuda").to(dtype)
+            k, v = (torch.randn(b, s_kv, kvh, d, generator=gen,
+                                device="cuda").to(dtype) for _ in range(2))
+            kw = dict(causal=win is not None, window=win or 0, prefix=prefix,
+                      q_offset=off)
+            got = ops.flash_attention(q, k, v, **kw)
+            want = ops.flash_attention_plain(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs()
+            lim = TOL[name] * (1 + want.float().abs())
+            ok = bool((err <= lim).all()) and bool(torch.isfinite(got).all())
+            case = (f"{name} b={b} rows [{off}, {off + n}) s_kv={s_kv} h={h} "
+                    f"kvh={kvh} d={d} causal={kw['causal']} "
+                    f"window={kw['window']} prefix={prefix}")
+            print(f"sweep q_offset {case}: max_abs_err={float(err.max()):.3e}"
+                  f" tol={TOL[name]} {'ok' if ok else 'FAIL'}")
+            check(ok, f"kernel disagrees with its plain version ({case})")
+
+
+def phase_shard_rows(torch, ops) -> dict:
+    """Each shard of ``SHARD_ROWS`` through the kernel with its offset,
+    against those rows of the kernel's whole-sequence call: within the
+    sweep's tolerance, and whether bit for bit (printed, counted)."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        n_bit = n_all = 0
+        worst = 0.0
+        for b, s, h, kvh, d, prefix, win, shards in SHARD_ROWS:
+            q = torch.randn(b, s, h, d, generator=gen, device="cuda").to(dtype)
+            k, v = (torch.randn(b, s, kvh, d, generator=gen,
+                                device="cuda").to(dtype) for _ in range(2))
+            kw = dict(prefix=prefix, window=win)
+            whole = ops.flash_attention(q, k, v, **kw)
+            for off, n in shards:
+                got = ops.flash_attention(q[:, off:off + n], k, v,
+                                          q_offset=off, **kw)
+                want = whole[:, off:off + n]
+                err = (got.float() - want.float()).abs()
+                lim = TOL[name] * (1 + want.float().abs())
+                check(bool((err <= lim).all()),
+                      f"{name} rows [{off}, {off + n}) of s={s} h={h} "
+                      f"kvh={kvh} d={d}: max_abs_err {float(err.max())} "
+                      f"against the whole call")
+                n_bit += bool(torch.equal(got, want))
+                n_all += 1
+                worst = max(worst, float(err.max()))
+        out[name] = {"shards": n_all, "bit_equal": n_bit,
+                     "max_abs_err": worst}
+        print(f"shard rows {name}: {n_bit} of {n_all} shards bit for bit "
+              f"equal to the whole call's rows, max_abs_err {worst:.3e} "
+              f"(tol {TOL[name]})")
+    return out
+
+
+def phase_shard_timing(torch, ops, card: str) -> dict:
+    """The kernel at ``CP_SHARD`` (the last query rows of a 32768-token
+    prefill, with their offset), held against its plain version; its ms,
+    the plain version's, the bound of its ``cost`` with the offset and
+    scaled_dot_product_attention over the same rows with the same mask
+    as an explicit boolean ``attn_mask`` and ``enable_gqa``."""
+    import torch.nn.functional as F
+    b, s, s_kv, off, h, kvh, d, prefix = (CP_SHARD[k] for k in (
+        "b", "s", "s_kv", "q_offset", "h", "kvh", "d", "prefix"))
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    q = torch.randn(b, s, h, d, generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn(b, s_kv, kvh, d, generator=gen, device="cuda")
+            .bfloat16() for _ in range(2))
+    kw = dict(prefix=prefix, q_offset=off)
+    want = ops.flash_attention_plain(q, k, v, **kw).float()
+    lim = TOL["bfloat16"] * (1 + want.abs())
+    diff = (ops.flash_attention(q, k, v, **kw).float() - want).abs()
+    err = float(diff.max())
+    check(bool((diff <= lim).all()), f"shard kernel error {err}")
+    rows = off + torch.arange(s, device="cuda")
+    keys = torch.arange(s_kv, device="cuda")
+    mask = (keys[None, :] <= rows[:, None]) | (keys[None, :] < prefix)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              enable_gqa=True)
+    check(bool(((sdpa().transpose(1, 2).float() - want).abs() <= lim).all()),
+          "scaled_dot_product_attention with the shard's mask computes "
+          "another function")
+    del want, lim, diff
+    ms = cuda_ms(lambda: ops.flash_attention(q, k, v, **kw))
+    plain_ms = cuda_ms(lambda: ops.flash_attention_plain(q, k, v, **kw),
+                       iters=5, warmup=1)
+    lib_ms = cuda_ms(sdpa)
+    flops, nbytes = ops.cost(q.shape, k.shape, q.dtype, prefix=prefix,
+                             q_offset=off)
+    bound_ms, bound_by = bound_of(flops, nbytes, PEAK_BF16_FLOPS)
+    print(f"timing rows [{off}, {off + s}) of s_kv={s_kv} h={h} kvh={kvh} "
+          f"d={d} bf16 prefix={prefix} (qwen2-vl-7b's last context-parallel "
+          f"shard): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+          f"(attn_mask, enable_gqa) {lib_ms:.4f} ms, bound {bound_ms:.4f} "
+          f"ms ({bound_by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB);"
+          f" kernel at {flops / ms / 1e9:.2f} TFLOP/s; max_abs_err "
+          f"{err:.3e} [{card}]")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=lib_ms,
+                shape="b={b} rows [{o}, {e}) of s_kv={s_kv} h={h} kvh={kvh} "
+                      "d={d} bf16 prefix={prefix} (qwen2-vl-7b prefill_32k, "
+                      "the last of 16 context-parallel shards)".format(
+                          o=off, e=off + s, **CP_SHARD))
 
 
 def request_extras(cfg, rng) -> dict:
@@ -2129,6 +2288,8 @@ def main() -> int:
 
     # 3. each kernel against its plain version
     phase_sweep(torch, ops)
+    shard_rows = phase_shard_rows(torch, ops)
+    t_shard = phase_shard_timing(torch, ops, card)
     phase_moe_sweep(torch, moe_ops)
     t_large_f = phase_moe_large_f(torch, moe_ops, card)
     phase_quantize_sweep(torch, q_ops, quantize_plain)
@@ -2329,6 +2490,7 @@ def main() -> int:
                       "shape": "b={b} s={s} h={h} kvh={kvh} d={d} bf16 "
                                "(qwen2-vl-7b prefill)"
                                .format(**VLM_ATTN_SHAPE)},
+         "q_offset": {"shard_rows": shard_rows, "qwen2_vl_cp_shard": t_shard},
          "whisper": {
              part: {**t_whisper[part],
                     "shape": "b={b} s={s} s_kv={kv} h={h} d={d} bf16 not "
@@ -2922,7 +3084,8 @@ def phase_dryrun(torch, counters, seed: int, card: str):
     finally:
         dist.destroy_process_group()
     for multi, cells in DRYRUN_CELLS:
-        with dr.fake_process_group(512 if multi else 256):
+        with dr.fake_process_group(512 if multi else 256,
+                                   dr.costed_rank(multi)):
             for arch, name in cells:
                 out["cells"][f"{arch} {name} {'multi' if multi else 'single'}"
                              ] = _dryrun_production(torch, dr, arch, name,
@@ -3023,9 +3186,12 @@ def _dryrun_native(torch, counters, dr, arch: str, name: str, batch: int,
 def _dryrun_production(torch, dr, arch: str, name: str, multi: bool,
                        card: str) -> dict:
     """One production cell under the fake process group on fake CUDA
-    tensors: ``ok``, and where the rules split the heads, the per-device
-    flash flops times the ranks that split them equal the global flash
-    flops; a context-parallel cell names flash as replicated."""
+    tensors, costed as the last rank along "model": ``ok``, no kernel
+    replicated, no stacked leaf moved whole; where the rules split the
+    heads, the per-device flash flops times the ranks that split them
+    equal the global flash flops, and where they split the query rows
+    ("q_seq"), the costed rank's (the heaviest rows) are at least that
+    share."""
     import math
     res = dr.dryrun_cell(arch, name, multi)
     check(res["status"] == "ok", f"dry run {arch} {name}: {res}")
@@ -3037,17 +3203,24 @@ def _dryrun_production(torch, dr, arch: str, name: str, multi: bool,
     if shape.kind == "prefill" and cfg.n_heads and cfg.family != "audio":
         # the ranks that split the heads (JAX's head TP) and the batch
         # each hold their share of the global flash flops; where the
-        # heads are not split ("q_seq"), flash runs whole over "model"
+        # query rows are split ("q_seq"), the costed rank holds the last
+        # rows, which see the most keys
         got = res["kernel_flops"]["flash_attention"]
         want = dr.flash_global_flops(cfg, shape)
         n = dr.flash_split_ranks(cfg, shape, rules)
-        check(math.isclose(got * n, want, rel_tol=1e-9),
-              f"dry run {arch} {name}: flash {got} flops a device x {n} "
-              f"ranks, global {want}")
-        check(res["replicated_kernels"] == (
-            {} if rules.size("heads") > 1 else {"flash_attention":
-                                                ["model"]}),
-              f"dry run {arch} {name}: {res['replicated_kernels']}")
+        if rules.size("q_seq") > 1:
+            check(got * n >= want, f"dry run {arch} {name}: flash {got} "
+                                   f"flops on the busiest rank x {n} "
+                                   f"ranks, under the global {want}")
+        else:
+            check(math.isclose(got * n, want, rel_tol=1e-9),
+                  f"dry run {arch} {name}: flash {got} flops a device x "
+                  f"{n} ranks, global {want}")
+    check(res["replicated_kernels"] == {},
+          f"dry run {arch} {name}: {res['replicated_kernels']}")
+    check(res["whole_stacked_moves"] == [],
+          f"dry run {arch} {name}: stacked leaves moved whole "
+          f"{res['whole_stacked_moves'][:4]}")
     mem = res["memory"]
     line = {"arch": arch, "shape": name,
             "mesh": "multi" if multi else "single",
@@ -3059,7 +3232,11 @@ def _dryrun_production(torch, dr, arch: str, name: str, multi: bool,
             "collective_bytes": {k: v["bytes"]
                                  for k, v in res["collectives"].items()},
             "kernels": res["kernels"], "trace_s": res["trace_s"],
-            "replicated_kernels": res["replicated_kernels"], "card": card}
+            "replicated_kernels": res["replicated_kernels"],
+            "costed_coordinate": res["costed_coordinate"],
+            "flash_flops": res["kernel_flops"].get("flash_attention"),
+            "flops_per_device": res["roofline"]["hlo_flops_per_device"],
+            "card": card}
     print(json.dumps({"dryrun_cell": line}))
     return line
 

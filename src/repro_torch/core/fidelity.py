@@ -41,9 +41,9 @@ from torch.distributed.tensor import DTensor
 
 from repro_torch.core.op_cost import CostMode
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.dist.sharding import (_contiguous_strides,
-                                       local_shape_and_offset)
-from repro_torch.models.common import TensorSpec, map_leaves
+from repro_torch.dist.sharding import local_shape_and_offset
+from repro_torch.models.common import (TensorSpec, contiguous_strides,
+                                       map_leaves)
 
 
 def _tree_map(fn: Callable, tree: Any) -> Any:
@@ -188,8 +188,8 @@ class DryRunBackend(Backend):
     ``detail["kernels"]`` counts each kernel's calls;
     ``detail["unknown_ops"]`` the calls of ops that ``op_cost`` has no
     flops rule for (costed at 0 flops and their bytes);
-    ``detail["collectives"]``, ``["copy_bytes"]``, ``["top_dots"]`` and
-    ``["top_bytes"]`` are ``CostMode``'s.
+    ``detail["collectives"]``, ``["copy_bytes"]``, ``["moves"]``,
+    ``["top_dots"]`` and ``["top_bytes"]`` are ``CostMode``'s.
 
     The step may not read a value back to the host (``.item()``,
     ``int(tensor)``): a fake tensor has none.  The train and prefill
@@ -234,6 +234,7 @@ class DryRunBackend(Backend):
         rep.detail["copy_bytes"] = cost.copy_bytes
         rep.detail["top_dots"] = cost.top_dots
         rep.detail["top_bytes"] = cost.top_bytes
+        rep.detail["moves"] = cost.moves
         return rep
 
 
@@ -338,7 +339,7 @@ def _fake_shards(specs: Any, shardings: Any, device: torch.device) -> Any:
         t = DTensor.from_local(
             torch.empty(tuple(local), dtype=s.dtype, device=device),
             sh.mesh, sh.placements, run_check=False, shape=s.shape,
-            stride=_contiguous_strides(tuple(s.shape)))
+            stride=contiguous_strides(tuple(s.shape)))
         return t.requires_grad_(s.requires_grad)
     return map_leaves(one, specs, shardings)
 

@@ -235,7 +235,10 @@ class CostMode(TorchDispatchMode):
     ``bytes``: operand bytes per device, ``group_sizes``);
     ``copy_bytes`` the bytes of the copy ops (``copy_``, ``_to_copy``,
     ``clone``, ``cat``); ``top_dots`` and ``top_bytes`` are the largest
-    dots by flops and ops by bytes, ``(value, "op [local shapes]")``.
+    dots by flops and ops by bytes, ``(value, "op [local shapes]")``;
+    ``moves`` lists each collective and ``cat`` as ``(op, shapes)``, the
+    shapes of its tensor operands and outputs (what a check for a
+    tensor moved or rebuilt whole reads).
 
     ``peak_bytes`` is the peak of the storage the step's ops created and
     that was alive at once (each storage once, its views and in-place
@@ -253,6 +256,7 @@ class CostMode(TorchDispatchMode):
         self.copy_bytes = 0.0
         self.top_dots: List[Tuple[float, str]] = []
         self.top_bytes: List[Tuple[float, str]] = []
+        self.moves: List[Tuple[str, List[Tuple[int, ...]]]] = []
         self.live_bytes = 0.0
         self.peak_bytes = 0.0
         self.created: Dict[int, float] = {}      # id(storage) -> bytes
@@ -377,16 +381,23 @@ class CostMode(TorchDispatchMode):
                 n = group_size(func, args, kwargs)
                 if n not in c["group_sizes"]:
                     c["group_sizes"] = sorted(c["group_sizes"] + [n])
+                self._move(func, args, out)
         elif _tensors(out) and not known(func):
             self.unknown[str(func)] += 1
         if func.overloadpacket in _COPIES:
             self.copy_bytes += nbytes
+        if func.overloadpacket is aten.cat:
+            self._move(func, args, out)
         if flops or nbytes:
             self.ops.append((str(func), flops, nbytes))
             if func.overloadpacket in _DOTS:
                 _keep_top(self.top_dots, flops, func, args, self.TOP_DOTS)
             _keep_top(self.top_bytes, nbytes, func, args, self.TOP_BYTES)
         return out
+
+    def _move(self, func, args, out) -> None:
+        self.moves.append((str(func), [tuple(t.shape) for t in
+                                       _tensors((args, out))]))
 
     @property
     def flops(self) -> float:

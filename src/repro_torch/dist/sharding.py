@@ -45,7 +45,8 @@ from torch.distributed.tensor import (DTensor, Placement, Replicate, Shard,
 from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
-from repro_torch.models.common import Sharder, leaves, map_leaves
+from repro_torch.models.common import (Sharder, contiguous_strides, leaves,
+                                       map_leaves)
 
 # logical axis name -> tuple of mesh axis names (None = replicated)
 Mapping = Dict[str, Optional[Tuple[str, ...]]]
@@ -221,14 +222,6 @@ def local_shape_and_offset(shape: Tuple[int, ...], mesh: Any,
     return tuple(size), tuple(offset)
 
 
-def _contiguous_strides(shape: Tuple[int, ...]) -> Tuple[int, ...]:
-    strides, n = [], 1
-    for d in reversed(shape):
-        strides.append(n)
-        n *= d
-    return tuple(reversed(strides))
-
-
 class MeshSharder(Sharder):
     """``Sharder`` that applies the rules on a ``DeviceMesh``.
 
@@ -260,6 +253,14 @@ class MeshSharder(Sharder):
             want = self.rules.placements(
                 self._spec_for_shape(x.shape, axes), self.mesh)
             self._placements[key] = want
+        if x.device_mesh is not self.mesh:
+            # an equal mesh of an earlier process group (DTensor's
+            # propagation cache hands out the first of equal meshes): its
+            # coordinate is another rank's, which code that reads the
+            # rank's place (``flash_attention_rows``) must not see
+            x = DTensor.from_local(x.to_local(), self.mesh, x.placements,
+                                   run_check=False, shape=x.shape,
+                                   stride=x.stride())
         if tuple(x.placements) == want:
             return x
         y = x.redistribute(self.mesh, want)
@@ -272,7 +273,7 @@ class MeshSharder(Sharder):
         # result a contiguous shard and contiguous global strides
         return DTensor.from_local(local.contiguous(), self.mesh, want,
                                   run_check=False, shape=y.shape,
-                                  stride=_contiguous_strides(y.shape))
+                                  stride=contiguous_strides(y.shape))
 
     def axis_size(self, logical: str) -> int:
         return self.rules.size(logical)

@@ -10,7 +10,11 @@
 // causal with a prefix, where keys kpos < prefix are visible to every
 // row.  That is the mask of an M-RoPE prefill (Qwen2-VL): its vision
 // tokens all sit at temporal position 0, so they see each other both
-// ways, and the model masks by temporal position.
+// ways, and the model masks by temporal position.  And a query-row
+// offset: local query row i is row q_offset + i of the sequence the keys
+// cover, so that a rank of a context-parallel prefill, holding a slice of
+// the query rows and every key, masks its rows where they lie (the mask,
+// the causal KV range and the window's edge all take the global row).
 //
 // Layout.  q/o are read and written in the model layout (b, s, h, d)
 // through their strides, k/v in (b, s_kv, kvh, d): no transpose copy.
@@ -100,16 +104,18 @@ struct Params {
   long long v_sb, v_ss, v_sh;
   long long o_sb, o_ss, o_sh;
   int causal, window, prefix;
+  int q_offset;  // global index of local query row 0
   float scale;
 };
 
-// KV tiles [first, end) that q rows [q0, q_last] need, before the mask.
+// KV tiles [first, end) that local q rows [q0, q_last] need, before the
+// mask: global rows q0 + q_offset .. q_last + q_offset.
 __device__ __forceinline__ void kv_range(const Params& p, int q0, int q_last,
                                          int bk, int& first, int& end) {
   int k_begin = 0, k_end = p.skv;
   if (p.causal) {
-    k_end = min(k_end, max(q_last + 1, p.prefix));
-    if (p.window > 0) k_begin = max(0, q0 - p.window + 1);
+    k_end = min(k_end, max(q_last + p.q_offset + 1, p.prefix));
+    if (p.window > 0) k_begin = max(0, q0 + p.q_offset - p.window + 1);
   }
   first = k_begin / bk;
   end = (k_end + bk - 1) / bk;
@@ -211,7 +217,7 @@ __global__ void __launch_bounds__(NT) flash_f32_kernel(Params p) {
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i, qi = q0 + r;
+      const int r = ty + 16 * i, qi = q0 + r + p.q_offset;  // global row
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int cc = tx + 16 * j, kj = k0 + cc;
@@ -274,9 +280,9 @@ __global__ void __launch_bounds__(NT) flash_f32_kernel(Params p) {
     }
   }
 
-  // a row with no visible key (only when causal with a window and s >
-  // s_kv, which the wrapper refuses) has l = 0 and acc = 0: the floor,
-  // which mirrors the TPU kernel, writes 0 there
+  // a row with no visible key (only when causal with a window and
+  // q_offset + s >= s_kv + window, which the wrapper refuses) has l = 0
+  // and acc = 0: the floor, which mirrors the TPU kernel, writes 0 there
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 16 * i, qi = q0 + r;
@@ -335,7 +341,9 @@ struct Item {
 };
 
 // Work items are numbered heaviest first: w / (b h) counts q tiles down
-// from the last (causal: the most KV tiles), w % (b h) is the (b, h).
+// from the last (causal: the most KV tiles; a q_offset adds the same
+// keys to every tile, so the last is still the heaviest), w % (b h) is
+// the (b, h).
 __device__ __forceinline__ Item item_of(const Params& p, int w, int nqt) {
   Item it;
   const int bh = w % (p.b * p.h);
@@ -443,8 +451,11 @@ __global__ void __launch_bounds__(NT, 1)
     const Item it = item_of(p, w, nqt);
     const int qbuf = n & 1, q_round = n >> 1;
     ++n;
+    // local rows qa, qb (the stores); global rows ga, gb and the
+    // warpgroup's global rows [wq_lo, wq_hi] (the mask)
     const int qa = it.q0 + wg * 64 + (warp & 3) * 16 + g, qb = qa + 8;
-    const int wq_lo = it.q0 + wg * 64, wq_hi = wq_lo + 63;
+    const int ga = qa + p.q_offset, gb = qb + p.q_offset;
+    const int wq_lo = it.q0 + p.q_offset + wg * 64, wq_hi = wq_lo + 63;
     const uint32_t q_wg = q_tiles + qbuf * C::Q_BYTES + wg * 64 * 128;
 #pragma unroll
     for (int i = 0; i < C::DP / 2; ++i) O[i] = 0.f;
@@ -491,7 +502,7 @@ __global__ void __launch_bounds__(NT, 1)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int kj = k0 + 8 * i + 2 * qd + (e & 1);
-            const int qi = e < 2 ? qa : qb;
+            const int qi = e < 2 ? ga : gb;
             bool ok = kj < p.skv;
             if (p.causal) {
               ok = ok && (kj <= qi || (PREFIX && kj < p.prefix));
@@ -567,9 +578,9 @@ __global__ void __launch_bounds__(NT, 1)
       sm90::mbar_arrive(&bar_qempty[qbuf]);
     }
 
-    // a row with no visible key (only when causal with a window and s >
-    // s_kv, which the wrapper refuses) has l = 0 and O = 0: the floor,
-    // which mirrors the TPU kernel, writes 0 there
+    // a row with no visible key (only when causal with a window and
+    // q_offset + s >= s_kv + window, which the wrapper refuses) has l = 0
+    // and O = 0: the floor, which mirrors the TPU kernel, writes 0 there
     l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
     l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
     l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
@@ -630,7 +641,9 @@ cudaError_t launch_dtype(const Params& p, int dtype, cudaStream_t stream) {
 
 // dtype: 0 = float32, 1 = bfloat16.  causal: mask by index, keys below
 // `prefix` visible to every row (prefix 0: plain causal; the wrapper
-// refuses a prefix with a window).  Strides are in elements; the last
+// refuses a prefix with a window); local query row i masks as row
+// `q_offset` + i (q_offset >= 0; 0: q holds the sequence's first rows).
+// Strides are in elements; the last
 // dimension of every tensor must be contiguous; in bf16 the base pointers
 // must be 16-byte aligned and the strides multiples of 8 (the wrapper
 // checks).  `device` is the index of
@@ -644,16 +657,16 @@ extern "C" int flash_attention_fwd(
     long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, long long o_sb,
     long long o_ss, long long o_sh, int causal, int window, int prefix,
-    float scale, int device, void* stream) {
+    int q_offset, float scale, int device, void* stream) {
   if (b < 1 || sq < 1 || skv < 1 || h < 1 || kvh < 1 || h % kvh != 0 ||
-      prefix < 0 || (prefix > 0 && window > 0))
+      prefix < 0 || (prefix > 0 && window > 0) || q_offset < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
   Params p{q, k, v, o, b, sq, skv, h, kvh,
            q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
            v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
-           causal, window, prefix, scale};
+           causal, window, prefix, q_offset, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (d) {

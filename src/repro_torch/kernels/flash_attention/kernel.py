@@ -19,6 +19,6 @@ def load() -> ctypes.CDLL:
     fn = lib.flash_attention_fwd
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn.argtypes = ([ptr] * 4 + [i32] * 7 + [i64] * 12
-                   + [i32, i32, i32, ctypes.c_float, i32, ptr])
+                   + [i32] * 4 + [ctypes.c_float, i32, ptr])
     fn.restype = i32
     return lib

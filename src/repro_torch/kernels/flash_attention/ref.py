@@ -5,6 +5,8 @@ Mirrors ``repro.kernels.flash_attention.ref.attention_ref``: causal
 masks by index.  ``prefix`` keys are visible to every query row: the
 mask of an M-RoPE sequence, whose ``prefix`` vision tokens all sit at
 temporal position 0 (``repro_torch.models.transformer.make_positions``).
+Query row i is row ``q_offset + i`` of the sequence the keys cover (a
+rank's slice of a context-parallel prefill).
 """
 
 from __future__ import annotations
@@ -18,13 +20,13 @@ NEG_INF = -1e9
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int = 0,
-                  prefix: int = 0) -> torch.Tensor:
+                  prefix: int = 0, q_offset: int = 0) -> torch.Tensor:
     """q/k/v: (b, s, h, d) -> (b, s, h, d)."""
     b, s, h, d = q.shape
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float()
     scores = scores / math.sqrt(d)
     if causal:
-        qi = torch.arange(s, device=q.device)[:, None]
+        qi = q_offset + torch.arange(s, device=q.device)[:, None]
         ki = torch.arange(k.shape[1], device=q.device)[None, :]
         mask = ki <= qi
         if window:

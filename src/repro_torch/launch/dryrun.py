@@ -7,13 +7,14 @@ For each cell this dry run:
      cell's ``MeshSharder`` and the production shardings of its params,
      train state and batch (``make_rules``, ``param_shardings``,
      ``batch_shardings``, as the JAX dry run's ``in_shardings``);
-  2. runs it once as rank 0 of the (16, 16) or (2, 16, 16) mesh under
-     PyTorch's fake process group, on fake tensors
-     (``core.fidelity.DryRunBackend``): every input is rank 0's local
-     shard wrapped as a DTensor, nothing is allocated and nothing is
-     launched, and DTensor emits the local ops and the collectives that
-     one rank would.  Success shows that the layout is coherent (every op
-     has a strategy, every redistribution resolves);
+  2. runs it once as one rank of the (16, 16) or (2, 16, 16) mesh under
+     PyTorch's fake process group (``costed_rank``: the last rank along
+     "model", the busiest of a causal context-parallel prefill), on fake
+     tensors (``core.fidelity.DryRunBackend``): every input is that
+     rank's local shard wrapped as a DTensor, nothing is allocated and
+     nothing is launched, and DTensor emits the local ops and the
+     collectives that one rank would.  Success shows that the layout is
+     coherent (every op has a strategy, every redistribution resolves);
   3. records the per-device costs of that stream (``core.op_cost``): the
      flops and bytes of the local ops at their local shapes, the port's
      four kernels at their ``cost``, the collectives by kind with their
@@ -38,12 +39,19 @@ the compiled module, and eager PyTorch has no compiled module to ask;
 ``roofline`` holds the port's count.  Keys of the port's own:
 ``kernels`` (each kernel's calls) and ``kernel_flops`` (their flops a
 device, by kernel), ``unknown_ops``, ``options`` (the
-train options the cell ran with), ``device`` and
+train options the cell ran with), ``device``, ``costed_rank`` and
+``costed_coordinate`` (the rank whose stream was costed, and its
+coordinate on the mesh), ``whole_stacked_moves`` (the collectives and
+``cat`` ops of the stream with an operand or output at the global shape
+of a stacked layer leaf that the cell's layout splits: a gradient of
+such a leaf reduced or rebuilt whole; ``stacked_moves_of``), and
 ``replicated_kernels``: the kernels whose inputs the cell's layout
-splits over a mesh axis that the kernel cannot take (flash over
-"model" in a context-parallel "q_seq" cell: the kernel masks by index,
-so a shard of query rows would need its offset), so that they run on
-all of it there.
+splits over a mesh axis that the kernel cannot take, so that they would
+run on all of it there.  There is none: flash
+takes the batch, the heads and, in a context-parallel "q_seq" cell, its
+query rows (each rank's call is given its rows' offset,
+``flash_attention_rows``); the key stays, empty, so that a reader can
+hold a cell to it.
 
 Constants: one NVIDIA H100 SXM5 (dense bf16 tensor-core peak, HBM3 rate
 and size, NVLink 4 rate per direction).  A 16-wide mesh axis spans two
@@ -80,9 +88,10 @@ from repro_torch.configs.base import ArchConfig, ShapeConfig, cell_runnable
 from repro_torch.core.fidelity import DryRunBackend, StepProgram, StepReport
 from repro_torch.dist.sharding import MeshSharder, make_rules, mesh_axes
 from repro_torch.kernels.flash_attention.ops import cost as flash_cost
-from repro_torch.launch.mesh import describe, make_production_mesh
+from repro_torch.launch.mesh import (describe, make_production_mesh,
+                                     production_shape)
 from repro_torch.models import build_model
-from repro_torch.models.common import map_leaves
+from repro_torch.models.common import leaves_with_path, map_leaves
 from repro_torch.serve.step import build_decode_step, build_prefill_step
 from repro_torch.train.step import (TrainOptions, build_train_step,
                                     default_options_for, train_state_specs)
@@ -140,17 +149,6 @@ def model_flops(cfg: ArchConfig, shape: ShapeConfig) -> float:
                            backward=shape.kind == "train")
 
 
-def replicated_kernels(cfg: ArchConfig, shape: ShapeConfig,
-                       rules) -> Dict[str, list]:
-    """Kernels whose inputs the cell's rules split over an axis the
-    kernel's strategy does not take: flash in a prefill whose queries
-    are split over "q_seq" runs replicated over those axes."""
-    q_seq = rules.mapping.get("q_seq")
-    if shape.kind == "prefill" and cfg.n_heads and q_seq:
-        return {"flash_attention": list(q_seq)}
-    return {}
-
-
 def flash_global_flops(cfg: ArchConfig, shape: ShapeConfig) -> float:
     """The flash kernel's flops in a decoder LM's prefill cell, at global
     shapes: one call per attention layer, causal over the whole sequence
@@ -166,12 +164,25 @@ def flash_global_flops(cfg: ArchConfig, shape: ShapeConfig) -> float:
 
 def flash_split_ranks(cfg: ArchConfig, shape: ShapeConfig, rules) -> int:
     """The ranks that split a prefill's flash calls between them: its
-    batch's data-parallel ranks and, where the rules split the heads
-    (JAX's head TP), the "heads" ranks; the ranks of the rest hold the
-    same call."""
+    batch's data-parallel ranks, where the rules split the heads (JAX's
+    head TP) the "heads" ranks, and where they split the query rows
+    (context parallelism) the "q_seq" ranks; the ranks of the rest hold
+    the same call.  A causal row split is uneven: the rank with the last
+    rows does the most."""
     n = rules.size("batch") if shape.global_batch % rules.size("batch") \
         == 0 else 1
-    return n * rules.size("heads")
+    q_seq = rules.size("q_seq") if shape.seq_len % rules.size("q_seq") \
+        == 0 else 1
+    return n * rules.size("heads") * q_seq
+
+
+def costed_rank(multi_pod: bool = False) -> int:
+    """The rank a production cell is costed as: the last along "model"
+    (the mesh's innermost axis) with every other coordinate 0.  Every
+    rank of a cell runs the same ops but for a causal context-parallel
+    prefill ("q_seq"), whose last shard of query rows sees the most
+    keys; that rank bounds the step."""
+    return production_shape(multi_pod)[0][-1] - 1
 
 
 def default_device(kind: str) -> str:
@@ -199,6 +210,31 @@ def roofline_terms(rep: StepReport, n_dev: int) -> Dict[str, Any]:
             "hlo_bytes_per_device": nbytes,
             "copy_bytes_per_device": copy_bytes,
             "collective_bytes_per_device": coll_bytes}
+
+
+def split_stacked_shapes(arch: str, rules, mesh) -> set:
+    """The global shapes of the arch's stacked layer leaves (under
+    ``layers``, ``enc_layers`` or ``dec_layers``) that ``rules`` split
+    over some mesh dim."""
+    specs, axes = build_model(get_config(arch)).param_specs()
+    sharder = MeshSharder(mesh, rules)
+    out = set()
+    for (path, spec), (_, ax) in zip(leaves_with_path(specs),
+                                     leaves_with_path(axes)):
+        stacked = {"layers", "enc_layers", "dec_layers"} & set(
+            path.split("/"))
+        if stacked and any(p.is_shard()
+                           for p in sharder.sharding(ax).placements):
+            out.add(tuple(spec.shape))
+    return out
+
+
+def stacked_moves_of(rep: StepReport, shapes: set) -> list:
+    """The collectives and ``cat`` ops of a costed stream with an operand
+    or output of one of ``shapes`` (``split_stacked_shapes``), as
+    ``"op [shapes]"``."""
+    return [f"{op} {sh}" for op, sh in rep.detail["moves"]
+            if any(tuple(x) in shapes for x in sh)]
 
 
 def _cast_floats(specs: Any, dtype: Optional[torch.dtype]) -> Any:
@@ -269,6 +305,7 @@ def dryrun_cell(arch: str, shape_name: str, multi_pod: bool = False,
                                       dev)
     rep = DryRunBackend().run(prog)
     trace_s = time.perf_counter() - t0
+    coord = mesh.get_coordinate()
     mem = {k: rep.memory[k] for k in ("argument_bytes", "output_bytes",
                                       "temp_bytes", "alias_bytes")}
     mem["per_device_total"] = (mem["argument_bytes"] + mem["output_bytes"]
@@ -292,7 +329,11 @@ def dryrun_cell(arch: str, shape_name: str, multi_pod: bool = False,
         "kernels": rep.detail["kernels"],
         "kernel_flops": _kernel_flops(rep),
         "unknown_ops": rep.detail["unknown_ops"],
-        "replicated_kernels": replicated_kernels(cfg, shape, rules),
+        "replicated_kernels": {},
+        "whole_stacked_moves": stacked_moves_of(
+            rep, split_stacked_shapes(arch, rules, mesh)),
+        "costed_rank": dist.get_rank() if dist.is_initialized() else 0,
+        "costed_coordinate": list(coord) if coord is not None else None,
         "options": {"accum_steps": opts.accum_steps,
                     "moment_dtype": opts.moment_dtype, "chunk": opts.chunk},
     }
@@ -309,14 +350,15 @@ def _kernel_flops(rep: StepReport) -> Dict[str, float]:
 
 
 @contextlib.contextmanager
-def fake_process_group(world: int) -> Iterator[None]:
+def fake_process_group(world: int, rank: int = 0) -> Iterator[None]:
     """PyTorch's fake process group of ``world`` ranks, this process rank
-    0 (its collectives return at once and move nothing), destroyed on
-    exit.  Raises if a process group is already initialised."""
+    ``rank`` (its collectives return at once and move nothing),
+    destroyed on exit.  Raises if a process group is already
+    initialised."""
     from torch.testing._internal.distributed.fake_pg import FakeStore
     if dist.is_initialized():
         raise RuntimeError("a process group is already initialised")
-    dist.init_process_group("fake", store=FakeStore(), rank=0,
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
                             world_size=world)
     try:
         yield
@@ -329,10 +371,10 @@ def run_matrix(single_pod_only: bool = False,
                shapes=None, device=None, jobs: int = 1) -> list:
     """Every (arch x shape) cell on the single-pod mesh and, unless
     ``single_pod_only``, the multi-pod one, each mesh under its own fake
-    process group; one JSON file a cell and ``summary.json`` in
-    ``out_dir``.  ``jobs`` > 1 spreads the cells over that many worker
-    processes, each with its own fake process group (the cells share
-    nothing).  Exits 1 if a cell FAILED."""
+    process group, as its ``costed_rank``; one JSON file a cell and
+    ``summary.json`` in ``out_dir``.  ``jobs`` > 1 spreads the cells over
+    that many worker processes, each with its own fake process group
+    (the cells share nothing).  Exits 1 if a cell FAILED."""
     os.makedirs(out_dir, exist_ok=True)
     archs = archs or sorted(REGISTRY)
     shapes = shapes or list(SHAPES)
@@ -346,10 +388,12 @@ def run_matrix(single_pod_only: bool = False,
             with concurrent.futures.ProcessPoolExecutor(
                     jobs, mp_context=multiprocessing.get_context("spawn"),
                     initializer=_start_worker,
-                    initargs=(512 if multi else 256,)) as pool:
+                    initargs=(512 if multi else 256,
+                              costed_rank(multi))) as pool:
                 rows += list(pool.map(_matrix_cell, cells))
         else:
-            with fake_process_group(512 if multi else 256):
+            with fake_process_group(512 if multi else 256,
+                                    costed_rank(multi)):
                 rows += [_matrix_cell(c) for c in cells]
             _MESHES.clear()
     n_ok = sum(r["status"] == "ok" for r in rows)
@@ -367,10 +411,10 @@ def run_matrix(single_pod_only: bool = False,
 _MESHES: Dict[str, Any] = {}        # a process's production meshes
 
 
-def _start_worker(world: int) -> None:
+def _start_worker(world: int, rank: int) -> None:
     """A matrix worker's fake process group, for the process's life."""
     from torch.testing._internal.distributed.fake_pg import FakeStore
-    dist.init_process_group("fake", store=FakeStore(), rank=0,
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
                             world_size=world)
 
 
@@ -430,7 +474,8 @@ def main(argv=None) -> None:
         return
     if not args.arch or not args.shape:
         ap.error("--arch/--shape required unless --all")
-    with fake_process_group(512 if args.multi_pod else 256):
+    with fake_process_group(512 if args.multi_pod else 256,
+                            costed_rank(args.multi_pod)):
         res = dryrun_cell(args.arch, args.shape, args.multi_pod,
                           device=args.device)
     print(json.dumps(res, indent=1))

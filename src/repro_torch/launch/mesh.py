@@ -39,12 +39,18 @@ def single_device_mesh(device_type: str = "cuda") -> DeviceMesh:
     return make_mesh((1, 1), ("data", "model"), device_type)
 
 
+def production_shape(multi_pod: bool = False):
+    """(shape, axis names) of the single-pod or multi-pod mesh."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
 def make_production_mesh(*, multi_pod: bool = False,
                          device_type: str = "cuda") -> DeviceMesh:
     """The (16, 16) single-pod or (2, 16, 16) multi-pod mesh; raises
     unless the default process group has 256 or 512 ranks."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    shape, axes = production_shape(multi_pod)
     n = 512 if multi_pod else 256
     world = dist.get_world_size() if dist.is_initialized() else 0
     if world != n:

@@ -177,6 +177,15 @@ def zeros(specs: Tree, device: torch.device) -> Tree:
                                             device=device), specs)
 
 
+def contiguous_strides(shape: Tuple[int, ...]) -> Tuple[int, ...]:
+    """The strides of a contiguous tensor of ``shape``."""
+    strides, n = [], 1
+    for d in reversed(shape):
+        strides.append(n)
+        n *= d
+    return tuple(reversed(strides))
+
+
 def cast(tree: Tree, dtype: torch.dtype,
          device: Optional[torch.device] = None) -> Tree:
     """Cast float leaves to ``dtype`` (and move them to ``device``).

@@ -28,6 +28,9 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.common import IDENTITY_SHARDER, Sharder, param
 
 NEG_INF = -1e9
+# devices whose prefill takes the plain attention (the CPU); any other
+# takes the flash kernel
+PLAIN_DEVICES = ("cpu",)
 
 
 # ---------------------------------------------------------------------------
@@ -205,6 +208,16 @@ _ATTN_ROLES = (("b", "s", "h", None), ("b", None, "h", None),
 _ATTN_OUT = ("b", "s", "h", None)
 
 
+def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (b, s, d) by w (d, h, hd) -> (b, s, h, hd)."""
+    return torch.einsum("bsd,dhk->bshk", x, w)
+
+
+# the roles of ``_project``'s arguments for ``per_shard``: x by its batch
+# and query rows, the weight by its heads
+_PROJECT_ROLES = (("b", "s", None), (None, "h", None))
+
+
 def _mask(scores, q_pos, kv_pos, window: int):
     """Causal by position (and within ``window``): masked scores."""
     mask = kv_pos[:, None, None, :] <= q_pos[:, None, :, None]
@@ -303,10 +316,24 @@ def attention_train(p: Dict, x: torch.Tensor, cfg, positions: torch.Tensor,
     unrepeated, by the query heads as they are), and the attention output
     by "seq" before the output projection.  The returned k and v are the
     ones before any constraint, as JAX's ``kv_raw``.
+
+    On the kernel path of a mesh whose rules split "q_seq" (context
+    parallelism), x's rows are laid out by it before the q projection,
+    so that the projection, the qk norm and RoPE run on each rank's rows
+    (where XLA's propagation of q's layout puts them), and the kernel
+    runs on those rows with every key (``flash_attention_rows``).  The
+    projection runs on the local shards (``per_shard``): DTensor (torch
+    2.11) refuses the einsum's view that merges the batch and row dims
+    split over two mesh dims.
     """
     if mode not in ("train", "prefill"):
         raise ValueError(f"attention_train has no mode {mode!r}")
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    plain = mode == "train" or x.device.type in PLAIN_DEVICES
+    if not plain and sharder.axis_size("q_seq") > 1:
+        q = per_shard(_project, _PROJECT_ROLES, ("b", "s", "h", None),
+                      sharder.ac(x, ("batch", "q_seq", None)), p["wq"])
+    else:
+        q = _project(x, p["wq"])
     if cfg.qk_norm:
         q = _qk_norm(q, p["q_norm"], cfg.norm_eps)
     q = apply_rope(cfg, q, positions)
@@ -324,7 +351,6 @@ def attention_train(p: Dict, x: torch.Tensor, cfg, positions: torch.Tensor,
     else:
         k, v, kv_pos = kv
     cross = kv is not None
-    plain = mode == "train" or x.device.type == "cpu"
     if plain or (sharder.axis_size("heads") > 1
                  and sharder.axis_size("kv_heads") == 1):
         # on a mesh that splits the query heads but not the kv heads

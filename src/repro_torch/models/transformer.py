@@ -37,7 +37,7 @@ import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as ll
@@ -45,7 +45,8 @@ from repro_torch.models import mamba as mm
 from repro_torch.models import moe as me
 from repro_torch.models import rwkv as rw
 from repro_torch.models.common import (IDENTITY_SHARDER, Sharder,
-                                       TensorSpec, cast, stack_inits, zeros)
+                                       TensorSpec, cast, contiguous_strides,
+                                       stack_inits, zeros)
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 MODES = ("train", "prefill", "decode")
@@ -278,10 +279,53 @@ def _unstack(tree: Dict, n: int) -> List[Dict]:
     """The per-layer trees of a stacked parameter tree, as views.  Each
     leaf is split by one ``unbind``, whose backward stacks the layers'
     gradients in one op (indexing layer by layer would add a full-size
-    zero gradient per layer and leaf)."""
-    split = {k: _unstack(v, n) if isinstance(v, dict) else v.unbind(0)
+    zero gradient per layer and leaf); a DTensor leaf by
+    ``_UnbindLayers``, whose backward keeps the leaf's split."""
+    split = {k: _unstack(v, n) if isinstance(v, dict)
+             else _UnbindLayers.apply(v) if isinstance(v, DTensor)
+             else v.unbind(0)
              for k, v in tree.items()}
     return [{k: v[i] for k, v in split.items()} for i in range(n)]
+
+
+class _UnbindLayers(torch.autograd.Function):
+    """``unbind(0)`` of a stacked DTensor leaf (layers, ...), whose
+    backward stacks the layers' gradients on each rank's shards.
+
+    DTensor's own ``unbind`` backward stacks the per-layer gradient
+    DTensors, and its ``stack`` takes them replicated: every rank then
+    reduces and gathers each layer's gradient whole and holds the
+    stacked gradient at its global shape.  Here each layer's gradient is
+    laid out as the leaf's layer is (``Shard(d + 1)`` of the leaf is
+    ``Shard(d)`` of a layer), keeping a ``Partial`` where the leaf is
+    replicated, so that a rank moves at most one layer's shard; the
+    local gradients are stacked and wrapped in the leaf's placements,
+    ``Partial`` included.  The one reduction of a partial sum is then
+    the train step's (``shard_like_params``), on the rank's shard, as
+    JAX's scan gradient over the stacked leaf is reduced once."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.mesh, ctx.placements = x.device_mesh, tuple(x.placements)
+        ctx.shape = tuple(x.shape)
+        return tuple(x.unbind(0))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mesh, shape = ctx.mesh, ctx.shape
+        # a layer's placements: the leaf's split moved one dim down, and
+        # on the dims that replicate the leaf, the gradients' own partial
+        # sum (else replicated)
+        layer = tuple(Shard(p.dim - 1) if p.is_shard()
+                      else q if q.is_partial() else Replicate()
+                      for p, q in zip(ctx.placements, grads[0].placements))
+        locals_ = [(g if tuple(g.placements) == layer
+                    else g.redistribute(mesh, layer)).to_local()
+                   for g in grads]
+        stacked = [Shard(p.dim + 1) if p.is_shard() else p for p in layer]
+        return DTensor.from_local(torch.stack(locals_), mesh, stacked,
+                                  run_check=False, shape=shape,
+                                  stride=contiguous_strides(shape))
 
 
 def _layer_views(tree: Dict, n: int) -> List[Dict]:

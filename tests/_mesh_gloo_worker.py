@@ -31,6 +31,14 @@ ARCHS = sorted(REGISTRY)
 KV_SEQ_ARCHS = ("deepseek-67b", "qwen2-vl-7b")
 KV_SEQ_STEPS = 8
 TRAIN_ARCHS = ("stablelm-1.6b", "olmoe-1b-7b")
+# context-parallel prefill: the rules' mapping overridden as the JAX dry
+# run's ``rules_override`` does, query rows over "model" and no heads
+# split (a causal LM, one with a vision prefix, and an encoder-decoder
+# whose encoder and cross attention are not causal)
+Q_SEQ_ARCHS = ("stablelm-1.6b", "qwen2-vl-7b", "whisper-small")
+Q_SEQ_RULES = {"heads": None, "kv_heads": None, "kv_heads_c": None,
+               "q_seq": ("model",)}
+STACKS = ("layers", "enc_layers", "dec_layers")
 RESTORE_MESHES = ((4, 1), (1, 4))
 WORLD = 4
 B, S, CAP = 2, 16, 20            # batch, prompt length, cache capacity
@@ -95,6 +103,54 @@ def _serve(arch, mesh):
             "placements": [str(p) for p in got.placements]}
 
 
+def _serve_q_seq(arch, mesh):
+    """A prefill under context-parallel rules (``Q_SEQ_RULES``) against
+    the unsharded port, on both attention paths: the plain one (the CPU's)
+    and the kernel path, run here on the CPU: ``layers.PLAIN_DEVICES``
+    emptied, ``layers.flash_attention`` the op on checked inputs
+    (``run_op``), and the op given the plain version with its
+    ``q_offset`` as its CPU implementation for the test's scope.  On the
+    kernel path x's rows are laid out by "q_seq" before the q
+    projection and each rank's op call gets its rows' offset; the op's
+    calls and their local q rows are recorded."""
+    from repro_torch.kernels.flash_attention import ops as fo
+    from repro_torch.models import layers as ll
+    cfg = smoke(get_config(arch))
+    model = build_model(cfg, torch.float32)
+    params = model.init(0, "cpu")
+    sh = _sharder(cfg, mesh, B, S, "prefill")
+    sh.rules.mapping.update(Q_SEQ_RULES)
+    dparams = sh.distribute(params, sh.param_shardings(model.param_specs()[1]))
+    batch = _batch(cfg, B, S, 1)
+    calls = []
+
+    def impl(q, k, v, causal, window, prefix, q_offset=0):
+        calls.append((tuple(q.shape), tuple(k.shape), bool(causal),
+                      int(q_offset)))
+        return fo.flash_attention_plain(q, k, v, causal=causal,
+                                        window=window, prefix=prefix,
+                                        q_offset=q_offset)
+    with torch.no_grad():
+        want, _ = model.prefill(params, batch, seq_capacity=CAP)
+        plain, _ = model.prefill(dparams, batch, seq_capacity=CAP,
+                                 sharder=sh)
+        saved = ll.PLAIN_DEVICES, ll.flash_attention
+        ll.PLAIN_DEVICES, ll.flash_attention = (), fo.run_op
+        try:
+            with torch.library._scoped_library("repro_torch", "IMPL") as lib:
+                lib.impl("flash_attention", impl, "CPU")
+                kern, _ = model.prefill(dparams, batch, seq_capacity=CAP,
+                                        sharder=sh)
+        finally:
+            ll.PLAIN_DEVICES, ll.flash_attention = saved
+    mine = {"plain": _rel(plain, want), "kernel": _rel(kern, want),
+            "calls": calls, "coordinate": list(mesh.get_coordinate())}
+    ranks = [None] * WORLD
+    dist.all_gather_object(ranks, mine)
+    return {"ranks": ranks, "n_heads": cfg.n_heads,
+            "family": cfg.family}
+
+
 def _serve_kv_seq(arch, mesh):
     """Prefill and KV_SEQ_STEPS decode steps under the decode rules of a
     cache of CAP slots, against plain: the cache is split along its
@@ -127,9 +183,71 @@ def _serve_kv_seq(arch, mesh):
             "cache_err": cache_err}
 
 
+def _grads_and_compress(model, opts, sh, axes, dstate, dbatch):
+    """The gradients of the sharded state as they leave autograd: for
+    each stacked leaf, whether it has its param's placements (a
+    ``Partial`` where the param is replicated).  Then ``compress_
+    gradients`` on them laid out like the params, with an error buffer
+    drawn from a seed in the same layout, against the replicated path
+    (``blocks_stay_local`` off) bit for bit, and the collectives the
+    compress issues for the leaves whose blocks stay local (none
+    expected); the paths of the leaves that do not."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.optim import compress
+    from repro_torch.train.step import loss_and_grads
+    params = dstate["params"]
+    with sh.scope():
+        grads, _, _ = loss_and_grads(model, opts, params, dbatch, sh)
+    stacked = {}
+    for (path, g), p in zip(leaves_with_path(grads), leaves(params)):
+        if set(path.split("/")) & set(STACKS):
+            stacked[path] = all(
+                gp == pp or (pp == Replicate() and gp.is_partial())
+                for gp, pp in zip(g.placements, p.placements))
+    grads = map_leaves(sh.ac, grads, axes["params"])
+    gen = torch.Generator().manual_seed(5)
+    err = map_leaves(lambda g, a: sh.ac(1e-3 * torch.randn(
+        g.shape, generator=gen), a), grads, axes["params"])
+    local = [(path, compress.blocks_stay_local(g.shape, g.placements))
+             for path, g in leaves_with_path(grads)]
+    keep = [i for i, (_, ok) in enumerate(local) if ok]
+    gl, el = list(leaves(grads)), list(leaves(err))
+    with CommDebugMode() as comm:
+        deq_l, err_l = compress.compress_gradients(
+            tuple(gl[i] for i in keep), tuple(el[i] for i in keep))
+    deq, new_err = compress.compress_gradients(grads, err)
+    saved = compress.blocks_stay_local
+    compress.blocks_stay_local = lambda *a, **k: False
+    try:
+        deq_r, err_r = compress.compress_gradients(grads, err)
+    finally:
+        compress.blocks_stay_local = saved
+
+    def pick(tree):
+        flat = list(leaves(tree))
+        return tuple(flat[i] for i in keep)
+
+    def same(a, b):
+        return all(torch.equal(x.full_tensor(), y.full_tensor())
+                   for x, y in zip(leaves(a), leaves(b)))
+    return {"stacked_placements": stacked,
+            "bit_equal": same(deq, deq_r) and same(new_err, err_r),
+            "local_bit_equal": same(deq_l, pick(deq_r))
+            and same(err_l, pick(err_r)),
+            "placements_kept": all(
+                d.placements == g.placements and e.placements == g.placements
+                for d, e, g in zip(pick(deq), pick(new_err), pick(grads))),
+            "local_comms": comm.get_total_counts(),
+            "n_local": len(keep),
+            "replicated": [p for p, ok in local if not ok]}
+
+
 def _train(arch, mesh, out: Path):
     """One train step with grad_compress on DTensor state against the
-    plain step; stablelm's sharded state is then saved from the mesh."""
+    plain step; stablelm's sharded state is then saved from the mesh.
+    Before the step, the gradients and the compress of the sharded
+    state (``_grads_and_compress``)."""
     cfg = smoke(get_config(arch))
     model = build_model(cfg, torch.float32)
     opts = TrainOptions(grad_compress=True, warmup=0, total_steps=10)
@@ -140,6 +258,7 @@ def _train(arch, mesh, out: Path):
                            sh.param_shardings(axes))
     batch = _batch(cfg, TRAIN_B, S, 3, train=True)
     dbatch = sh.distribute(batch, sh.batch_shardings(batch))
+    grads = _grads_and_compress(model, opts, sh, axes, dstate, dbatch)
     lr0 = float(lr_at(opts, torch.zeros((), dtype=torch.int32)))
     ref, rm = build_train_step(model, opts)(ref, batch)
     dstate, dm = build_train_step(model, opts, sh, axes["params"])(dstate,
@@ -155,7 +274,7 @@ def _train(arch, mesh, out: Path):
     res = {"loss": float(rm["loss"]), "loss_sharded":
            float(dm["loss"].full_tensor()), "lr0": lr0,
            "params": diffs("params"), "err": diffs("err"),
-           "err_step": err_step,
+           "err_step": err_step, "grads": grads,
            "param_types": sorted({type(p).__name__
                                   for p in leaves(dstate["params"])})}
     if arch == "stablelm-1.6b":
@@ -280,6 +399,10 @@ def _ops(mesh):
     rr, kk, vv = rand(4, 8, 4, 16), rand(4, 8, 4, 16), rand(4, 8, 4, 16)
     lw, u, st = -torch.rand(4, 8, 4, 16, generator=g), rand(4, 16), \
         rand(4, 4, 16, 16)
+    def rows_op(q, k, v, c, w, p):
+        return fo.flash_attention_rows(q, k, v, causal=c, window=w,
+                                       prefix=p)
+
     cases = {
         # name: (op, args, per-arg placements, want out placements)
         "flash batch": (fo.OP, (q, k, v, True, 0, 0),
@@ -293,6 +416,10 @@ def _ops(mesh):
                        [(s0, r)] + [(r, r)] * 3, [(s0, r)]),
         "moe experts": (mo.OP, (x, wi, wg, wo_),
                         [(s0, s1)] + [(r, s0)] * 3, [(s0, s1)]),
+        # context parallelism: q's rows split over "model", every key on
+        # each rank; each rank's call gets its rows' offset
+        "flash q_seq": (rows_op, (q, k, v, True, 0, 0),
+                        [(s0, s1), (s0, r), (s0, r)], [(s0, s1)]),
         "quantize rows": (qo.OP, (rows,), [(s0, s0)], [(s0, s0)] * 2),
         "wkv6 batch": (wo.OP, (rr, kk, vv, lw, u, st, 32),
                        [(s0, r)] * 4 + [(r, r), (s0, r)],
@@ -301,8 +428,9 @@ def _ops(mesh):
                        [(r, s2)] * 4 + [(r, s0), (r, s1)],
                        [(r, s2), (r, s1)]),
     }
-    plain = {"flash_attention": lambda q, k, v, c, w, p:
-             fo.flash_attention_plain(q, k, v, causal=c, window=w, prefix=p),
+    plain = {"flash_attention": lambda q, k, v, c, w, p, o=0:
+             fo.flash_attention_plain(q, k, v, causal=c, window=w, prefix=p,
+                                      q_offset=o),
              "expert_mlp": mo.expert_mlp_plain,
              "quantize_blocks": quantize_plain,
              "wkv6": lambda r_, k_, v_, lw_, u_, s_, c:
@@ -318,7 +446,8 @@ def _ops(mesh):
                 dargs.append(distribute_tensor(a, mesh, next(it))
                              if isinstance(a, torch.Tensor) else a)
             got = op(*dargs)
-            want = op.name().split("::")[1]
+            want = ("flash_attention" if op is rows_op
+                    else op.name().split("::")[1])
             want = plain[want](*args)
             got = got if isinstance(got, tuple) else (got,)
             want = want if isinstance(want, tuple) else (want,)
@@ -346,6 +475,8 @@ def _worker(rank, store, out):
         t0 = time.perf_counter()
         for arch in ARCHS:
             _case(results, f"serve/{arch}", _serve, arch, mesh)
+        for arch in Q_SEQ_ARCHS:
+            _case(results, f"q_seq/{arch}", _serve_q_seq, arch, mesh)
         for arch in KV_SEQ_ARCHS:
             _case(results, f"kv_seq/{arch}", _serve_kv_seq, arch, mesh)
         for arch in TRAIN_ARCHS:

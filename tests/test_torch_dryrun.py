@@ -13,8 +13,10 @@ started together when the first test needs them:
 * a smoke parity: the JAX package's ``dryrun_cell`` on smoke configs at
   small shapes, compiled for a (2, 2) mesh of 4 forced CPU devices, for
   smoke stablelm (heads split), smoke deepseek (GQA: kv heads repeated)
-  and smoke olmoe (experts split), one cell of each kind.  The port runs
-  the same cells on a (2, 2) mesh of PyTorch's fake process group.
+  and smoke olmoe (experts split), one cell of each kind, and smoke
+  deepseek's prefill once more under context-parallel rules (the query
+  rows over "model", ``rules_override``).  The port runs the same cells
+  on a (2, 2) mesh of PyTorch's fake process group.
 
 In this process: collectives on hand-computed cases, flash's DTensor
 strategy on a (2, 2) fake-group mesh, and real production cells under
@@ -51,6 +53,11 @@ MESHES = {"single": ((16, 16), ("data", "model")),
 SMOKE_CELLS = [("stablelm-1.6b", "train_4k", (32, 8)),
                ("deepseek-67b", "prefill_32k", (32, 4)),
                ("olmoe-1b-7b", "decode_32k", (32, 4))]
+# context parallelism, as the JAX dry run's ``rules_override`` sets it:
+# query rows over "model", no heads split
+Q_SEQ_RULES = {"heads": None, "kv_heads": None, "kv_heads_c": None,
+               "q_seq": ("model",)}
+Q_SEQ_CELL = ("deepseek-67b", "prefill_32k", (32, 4))
 
 JAX_META = r"""
 import dataclasses, json
@@ -110,13 +117,15 @@ from repro.launch.mesh import make_mesh
 cells = json.loads(sys.argv[1])
 real_get_config = jd.get_config
 jd.get_config = lambda a: smoke(real_get_config(a))
-shapes = {n: ShapeConfig(n, s, b, kind) for _, n, (s, b), kind in cells}
+shapes = {n: ShapeConfig(n, s, b, kind) for _, n, (s, b), kind, _, _ in cells}
 jd.get_shape = lambda n: shapes[n]
 mesh = make_mesh((2, 2), ("data", "model"))
 out = {}
-for arch, name, _, kind in cells:
-    res = jd.dryrun_cell(arch, name, mesh=mesh)
-    out[arch] = {"argument_bytes": res["memory"]["argument_bytes"],
+for arch, name, _, kind, label, override in cells:
+    if override:
+        override = {k: tuple(v) if v else None for k, v in override.items()}
+    res = jd.dryrun_cell(arch, name, mesh=mesh, rules_override=override)
+    out[label] = {"argument_bytes": res["memory"]["argument_bytes"],
                  "flops": res["roofline"]["hlo_flops_per_device"],
                  "collectives": res["collectives"]}
 print("JSON" + json.dumps(out))
@@ -140,7 +149,10 @@ def _result(proc, timeout=240):
 def jax_runs():
     """Both JAX subprocesses, started together; their results on first
     use."""
-    smoke_cells = [(a, n, sb, SHAPES[n].kind) for a, n, sb in SMOKE_CELLS]
+    smoke_cells = [(a, n, sb, SHAPES[n].kind, a, None)
+                   for a, n, sb in SMOKE_CELLS]
+    a, n, sb = Q_SEQ_CELL
+    smoke_cells.append((a, n, sb, SHAPES[n].kind, f"{a} q_seq", Q_SEQ_RULES))
     procs = {"meta": _spawn(JAX_META),
              "smoke": _spawn(JAX_SMOKE, json.dumps(smoke_cells))}
     done = {}
@@ -325,14 +337,15 @@ def test_gqa_prefill_repeats_kv_where_only_q_heads_split(mesh4):
 # Smoke parity with the JAX dry run
 # ---------------------------------------------------------------------------
 
-def _smoke_cell(arch, name, seq_batch, mesh):
+def _smoke_cell(arch, name, seq_batch, mesh, rules_override=None):
     shape = ShapeConfig(name, *seq_batch, SHAPES[name].kind)
     real = dr.get_config, dr.SHAPES
     dr.get_config = lambda a: smoke(get_config(a))
     dr.SHAPES = {**SHAPES, name: shape}
     try:
         return dr.dryrun_cell(arch, name, mesh=mesh,
-                              device=mesh.device_type)
+                              device=mesh.device_type,
+                              rules_override=rules_override)
     finally:
         dr.get_config, dr.SHAPES = real
 
@@ -369,6 +382,117 @@ def test_smoke_cell_matches_jax_per_device(jax_runs, mesh4, arch, name,
           f"collectives torch {got['collectives']} JAX "
           f"{want['collectives']}")
     assert lo <= ratio <= hi, ratio
+
+
+# the context-parallel smoke prefill costed as the busiest rank (the last
+# along "model"), over JAX's per-device flops: measured 0.99252 (torch
+# 2.13, jax 0.9.0), held within 1% of that.  It stands above the head
+# split's band (deepseek-67b's above): there each rank's attention is
+# the kernel's half square against JAX's whole square (0.5 of it); here
+# the last rank's rows see 3/4 of the keys that JAX computes a rank (the
+# offset's full rectangle and their own half square)
+Q_SEQ_FLOPS = (0.98253, 1.00253)
+
+
+def test_context_parallel_smoke_prefill_matches_jax_per_device(jax_runs):
+    """smoke deepseek-67b's prefill under context-parallel rules on the
+    (2, 2) mesh: costed as rank 1, the last along "model" (query rows
+    [16, 32) of 32), and as rank 0.  No kernel is replicated; the flash
+    op ran on the rank's rows with every key, rank 1's three times rank
+    0's flops (pairs 16 (16 + 8) against 16 x 8); rank 1's flash flops
+    times the ranks that split the calls are at least the global flash
+    flops; per-device flops against JAX's as ``Q_SEQ_FLOPS``."""
+    arch, name, sb = Q_SEQ_CELL
+    want = jax_runs("smoke")[f"{arch} q_seq"]
+    got = {}
+    for rank in (0, 1):
+        with dr.fake_process_group(4, rank):
+            mesh = make_mesh((2, 2), ("data", "model"), "cuda")
+            got[rank] = _smoke_cell(arch, name, sb, mesh, Q_SEQ_RULES)
+    res = got[1]
+    assert res["status"] == "ok" and res["costed_coordinate"] == [0, 1]
+    assert res["rules"]["q_seq"] == ["model"]
+    assert res["replicated_kernels"] == {}
+    assert res["memory"]["argument_bytes"] == want["argument_bytes"]
+    flash = [got[r]["kernel_flops"]["flash_attention"] for r in (0, 1)]
+    assert flash[1] == 3 * flash[0]
+    cfg = smoke(get_config(arch))
+    shape = ShapeConfig(name, *sb, "prefill")
+    rules = make_rules(cfg, shape, MockMesh((2, 2), ("data", "model")))
+    rules.mapping.update(Q_SEQ_RULES)
+    n = dr.flash_split_ranks(cfg, shape, rules)
+    assert n == 4 and flash[1] * n >= dr.flash_global_flops(cfg, shape)
+    assert flash[0] * n + flash[1] * n == 2 * dr.flash_global_flops(cfg,
+                                                                    shape)
+    ratio = res["roofline"]["hlo_flops_per_device"] / want["flops"]
+    print(f"{arch} {name} q_seq: flops per device torch/JAX {ratio:.5f}")
+    lo, hi = Q_SEQ_FLOPS
+    assert lo <= ratio <= hi, ratio
+
+
+def test_train_cell_moves_no_stacked_leaf_whole(mesh4, monkeypatch):
+    """smoke stablelm's train step on the (2, 2) mesh: no collective and
+    no ``cat`` of the costed stream has an operand or output at the
+    global shape of a stacked layer leaf that the layout splits (the
+    layers' gradients are stacked on each rank's shards).  With the
+    layer split's backward left to DTensor (a plain ``unbind``), the
+    same check finds the gradient of the split attention output
+    projection reduced whole."""
+    from repro_torch.models import transformer
+    arch, name, sb = SMOKE_CELLS[0]
+    res = _smoke_cell(arch, name, sb, mesh4["cpu"])
+    assert res["status"] == "ok"
+    assert res["whole_stacked_moves"] == [], res["whole_stacked_moves"]
+    monkeypatch.setattr(transformer._UnbindLayers, "apply",
+                        lambda v: v.unbind(0))
+    old = _smoke_cell(arch, name, sb, mesh4["cpu"])
+    assert old["whole_stacked_moves"], old["collectives"]
+
+
+# which leaves' gradients ``compress_gradients`` replicates on the
+# (16, 16) mesh at train_4k (their blocks cross the shards: the dims
+# after the innermost split one multiply to no multiple of 256), by arch;
+# a hybrid arch's period positions written as ``*``; every other leaf is
+# compressed on its local shards
+COMPRESS_REPLICATED = {
+    "deepseek-67b": ["embed/head", "layers/ffn/wg", "layers/ffn/wi",
+                     "layers/mixer/wq"],
+    "jamba-v0.1-52b": ["embed/head", "layers/*/ffn/wg", "layers/*/ffn/wi",
+                       "layers/*/mixer/A_log", "layers/*/mixer/D",
+                       "layers/*/mixer/conv_b", "layers/*/mixer/conv_w",
+                       "layers/*/mixer/dt_bias", "layers/*/mixer/dt_proj",
+                       "layers/*/mixer/in_proj", "layers/*/mixer/wq",
+                       "layers/*/mixer/x_proj"],
+    "minicpm-2b": ["layers/ffn/wg", "layers/ffn/wi"],
+    "mixtral-8x22b": ["embed/head", "layers/ffn/wg", "layers/ffn/wi",
+                      "layers/mixer/wq"],
+    "nemotron-4-15b": ["embed/head", "layers/ffn/wi", "layers/mixer/wq"],
+    "olmoe-1b-7b": ["embed/head", "layers/mixer/wk", "layers/mixer/wq",
+                    "layers/mixer/wv"],
+    "qwen2-vl-7b": ["embed/head", "layers/ffn/wg", "layers/ffn/wi"],
+    "rwkv6-7b": ["embed/head", "layers/ffn/wk"],
+    "stablelm-1.6b": ["embed/head", "layers/ffn/wg", "layers/ffn/wi",
+                      "layers/mixer/wk", "layers/mixer/wq", "layers/mixer/wv"],
+    "whisper-small": ["dec_layers/ffn/wi", "enc_layers/ffn/wi"],
+}
+
+
+@pytest.mark.parametrize("arch", sorted(REGISTRY))
+def test_compress_replicates_only_leaves_whose_blocks_cross_shards(arch):
+    import re
+    from repro_torch.dist.sharding import MeshSharder
+    from repro_torch.models import build_model
+    from repro_torch.models.common import leaves_with_path
+    from repro_torch.optim.compress import blocks_stay_local
+    cfg, mock = get_config(arch), MockMesh(*MESHES["single"])
+    sh = MeshSharder(mock, make_rules(cfg, SHAPES["train_4k"], mock))
+    specs, axes = build_model(cfg).param_specs()
+    got = sorted({re.sub(r"/\d+/", "/*/", p)
+                  for (p, s), (_, a) in zip(leaves_with_path(specs),
+                                            leaves_with_path(axes))
+                  if not blocks_stay_local(s.shape,
+                                           sh.sharding(a).placements)})
+    assert got == COMPRESS_REPLICATED[arch]
 
 
 # ---------------------------------------------------------------------------

@@ -132,3 +132,88 @@ def test_bf16_staging_check():
     odd_stride = torch.zeros(2, 96, 4, 68, dtype=torch.bfloat16)[..., :64]
     with pytest.raises(ValueError, match="multiples of 8"):
         ops.check_staging(odd_stride, odd_stride, odd_stride)
+
+
+# (s, o, n, window, prefix): query rows [o, o + n) of an s-row sequence
+# with q_offset = o; causal, windowed (at and past the window's reach),
+# with a prefix the rows start inside, end inside and lie past; one row
+OFFSET_CASES = [(64, 32, 32, 0, 0), (64, 17, 20, 0, 0), (64, 0, 64, 0, 0),
+                (64, 40, 24, 16, 0), (64, 5, 30, 16, 0), (64, 8, 30, 0, 24),
+                (64, 16, 8, 0, 24), (64, 48, 16, 0, 24), (64, 63, 1, 0, 0)]
+
+
+@pytest.mark.parametrize("s,o,n,win,prefix", OFFSET_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_q_offset_rows_are_those_of_the_whole_sequence(s, o, n, win, prefix,
+                                                       dtype):
+    """The plain version (and the wrapper on the CPU) on rows [o, o + n)
+    with ``q_offset = o`` against those rows of JAX's attention over the
+    whole sequence: ``attention_ref``, or with a prefix JAX's
+    ``naive_causal_attention`` by M-RoPE temporal positions (the prefix
+    at 0, the rest at their index).  1e-6 in f32, the file's tolerance
+    in bf16."""
+    from repro.models.layers import naive_causal_attention as jax_naive
+    (qj, kj, vj), (qt, kt, vt) = inputs(11, 2, s, 4, 2, 16, dtype)
+    f32 = [jnp.repeat(a.astype(jnp.float32), r, axis=2)
+           for a, r in ((qj, 1), (kj, 2), (vj, 2))]
+    if prefix:
+        t = jnp.where(jnp.arange(s) < prefix, 0, jnp.arange(s))
+        t = jnp.broadcast_to(t, (2, s))
+        want = jax_naive(*f32, t, t)
+    else:
+        want = jax_ref(*f32, causal=True, window=win)
+    kw = dict(causal=True, window=win, prefix=prefix, q_offset=o)
+    rows = qt[:, o:o + n]
+    got = ops.flash_attention_plain(rows, kt, vt, **kw)
+    assert got.shape == rows.shape and got.dtype == TDT[dtype]
+    tol = 1e-6 if dtype == "float32" else TOL[dtype]
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32)[:, o:o + n],
+                               atol=tol, rtol=tol)
+    assert torch.equal(ops.flash_attention(rows, kt, vt, **kw), got)
+
+
+@pytest.mark.parametrize("s_kv,o,n,win,prefix", [
+    (64, 0, 64, 0, 0), (64, 32, 32, 0, 0), (64, 48, 16, 0, 0),
+    (64, 8, 24, 0, 20), (64, 16, 16, 0, 20), (64, 40, 24, 0, 20),
+    (64, 0, 20, 0, 20), (64, 32, 16, 8, 0), (64, 48, 16, 16, 0)])
+def test_cost_with_offset_is_the_masks_pair_count(s_kv, o, n, win, prefix):
+    """``cost`` of rows [o, o + n) counts 4 d flops a (query, key) pair of
+    the mask, each diagonal pair of a row at or past the prefix as one
+    half (the half-square convention: causal s x s is s^2 / 2); a
+    window whose rows all reach back a full window counts every pair
+    whole.  The shards of a split sum to the whole."""
+    b, h, d = 2, 4, 16
+    qi = torch.arange(o, o + n)[:, None]
+    ki = torch.arange(s_kv)[None, :]
+    mask = ki <= qi
+    if win:
+        mask &= ki > qi - win
+    if prefix:
+        mask |= ki < prefix
+    pairs = float(mask.sum())
+    if not win:
+        pairs -= float((torch.arange(o, o + n) >= prefix).sum()) / 2
+    flops, nbytes = ops.cost((b, n, h, d), (b, s_kv, h, d), torch.float32,
+                             window=win, prefix=prefix, q_offset=o)
+    assert flops == 4.0 * b * h * d * pairs
+    assert nbytes == 4.0 * (2 * b * n * h * d + 2 * b * s_kv * h * d)
+    if not win:
+        parts = sum(ops.cost((b, n // 4, h, d), (b, s_kv, h, d),
+                             torch.float32, prefix=prefix,
+                             q_offset=o + i * n // 4)[0] for i in range(4))
+        assert parts == flops
+
+
+def test_q_offset_refusals():
+    """A negative offset is refused, and with a window the rule for rows
+    without a visible key reads the global rows: rows [o, o + s) of a
+    window over s_kv keys are refused once o + s >= s_kv + window."""
+    q = torch.randn(1, 8, 2, 16)
+    k = v = torch.randn(1, 16, 2, 16)
+    with pytest.raises(ValueError, match="q_offset"):
+        ops.flash_attention(q, k, v, q_offset=-1)
+    with pytest.raises(ValueError, match="without a visible key"):
+        ops.flash_attention(q, k, v, window=4, q_offset=12)
+    got = ops.flash_attention(q, k, v, window=4, q_offset=11)
+    assert bool(torch.isfinite(got).all())

@@ -221,6 +221,48 @@ def test_flash_attention_kernel_strided_layout(card):
                                rtol=2e-2)
 
 
+# (s, o, n, h, kvh, d, window, prefix): query rows [o, o + n) of an
+# s-key sequence, given with q_offset = o: causal at an offset on the
+# 128-row tiles and off them, the last rows of a ragged sequence, windows,
+# and qwen2-vl-7b's GQA 28/4 with its 256-token vision prefix (rows that
+# start inside it and past it); d 64 and 128
+OFFSET_CASES = [(512, 256, 256, 4, 4, 64, 0, 0),
+                (512, 100, 300, 4, 2, 128, 0, 0),
+                (1000, 777, 223, 4, 4, 64, 0, 0),
+                (512, 300, 200, 4, 2, 64, 100, 0),
+                (513, 129, 257, 4, 2, 128, 200, 0),
+                (512, 128, 256, 28, 4, 128, 0, 256),
+                (512, 200, 100, 4, 2, 64, 0, 256),
+                (2048, 1920, 128, 28, 4, 128, 0, 256)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,o,n,h,kvh,d,window,prefix", OFFSET_CASES)
+def test_flash_attention_kernel_q_offset(card, s, o, n, h, kvh, d, window,
+                                         prefix, dtype):
+    """The kernel on query rows [o, o + n) with ``q_offset = o`` and every
+    key: one launch, against its plain version with the same offset, and
+    against those rows of the kernel's whole-sequence call, both at the
+    sweep's tolerance."""
+    gen = torch.Generator(device=card).manual_seed(s + o + n + d)
+    q = torch.randn(1, s, h, d, generator=gen, device=card).to(dtype)
+    k, v = (torch.randn(1, s, kvh, d, generator=gen, device=card).to(dtype)
+            for _ in range(2))
+    kw = dict(window=window, prefix=prefix)
+    rows = q[:, o:o + n]
+    n0 = ops.flash_attention.launches
+    got = ops.flash_attention(rows, k, v, q_offset=o, **kw)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == n0 + 1
+    want = ops.flash_attention_plain(rows, k, v, q_offset=o, **kw)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+    whole = ops.flash_attention(q, k, v, **kw)[:, o:o + n]
+    torch.testing.assert_close(got.float(), whole.float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
 # (g, e, c, d, f): the moe_mlp sweep of tests/test_kernels.py, the ragged
 # capacities of tests/test_torch_moe_mlp.py, and olmoe-1b-7b's widths
 # (D=2048, F=1024, E=64) at the capacities its prefill (C=25, 276, 320)

@@ -11,9 +11,18 @@ never share a rendezvous).  f32 compute at smoke size.
 * smoke deepseek-67b and qwen2-vl-7b (1 kv head) under the decode rules:
   the cache split along its slots, a prefill and 8 decode steps within
   1e-5 of the unsharded port.
+* Context-parallel prefills (query rows over "model", the rules
+  overridden) of smoke stablelm, qwen2-vl (a vision prefix) and whisper
+  (encoder and cross attention not causal), on the plain path and on the
+  kernel path with the op given its plain version for the test, within
+  1e-5 of the unsharded port on every rank, each rank's op calls on its
+  rows with their offset.
 * stablelm and olmoe: one train step with ``grad_compress`` on DTensor
   state against the plain step (see ``test_train_step_matches`` for the
-  bounds).
+  bounds); before it, every stacked leaf's gradient leaves autograd in
+  its param's placements, and the compress of the gradients laid out
+  like the params is bit-equal to the replicated path and issues no
+  collective for the leaves whose blocks stay local.
 * smoke stablelm's sharded prefill against the JAX package's
   ``lm_apply`` on the same params, directly.
 * A distributed save whose write fails on rank 0 raises on every rank,
@@ -108,6 +117,55 @@ def test_sharded_prefill_and_decode_match_unsharded(run, arch):
     assert r["decode"] <= gw.LOGIT_TOL, r
 
 
+@pytest.mark.parametrize("arch", gw.Q_SEQ_ARCHS)
+def test_context_parallel_prefill_matches_unsharded(run, arch):
+    """Under rules that split the query rows over "model" (2) and no
+    heads, every rank's full logits are within 1e-5 of the largest logit
+    of the unsharded port, on the plain path and on the kernel path.  On
+    the kernel path each op call ran on the rank's batch rows (over
+    "data") and query rows (over "model") with every key, with the
+    offset of the rank's rows: S / 2 times its "model" coordinate."""
+    r = _ok(run[0], f"q_seq/{arch}")
+    assert len(r["ranks"]) == WORLD
+    for rank in r["ranks"]:
+        assert rank["plain"] <= gw.LOGIT_TOL, rank
+        assert rank["kernel"] <= gw.LOGIT_TOL, rank
+        calls = rank["calls"]
+        assert calls, rank
+        for q_shape, k_shape, causal, q_offset in calls:
+            assert q_shape[0] == B // 2 and k_shape[0] == B // 2
+            assert q_shape[1] * 2 == k_shape[1] or not causal
+            if causal:
+                assert q_offset == rank["coordinate"][1] * q_shape[1], rank
+        # the causal calls: every attention layer of the decoder
+        assert any(c[2] for c in calls)
+        if r["family"] == "audio":
+            assert any(not c[2] for c in calls)
+
+
+@pytest.mark.parametrize("arch", gw.TRAIN_ARCHS)
+def test_stacked_gradients_keep_the_params_placements(run, arch):
+    """Every stacked layer leaf's gradient leaves autograd in its param's
+    placements (a partial sum where the param is replicated), none laid
+    out whole: the backward of the layer split stacks each rank's
+    shards."""
+    r = _ok(run[0], f"train/{arch}")["grads"]
+    assert r["stacked_placements"], r
+    assert all(r["stacked_placements"].values()), r["stacked_placements"]
+
+
+@pytest.mark.parametrize("arch", gw.TRAIN_ARCHS)
+def test_compress_on_local_shards_is_bit_equal(run, arch):
+    """``compress_gradients`` on the gradients laid out like the params:
+    the dequantized gradients and the new error buffer equal the
+    replicated path's bit for bit; the leaves whose blocks stay local
+    keep the gradients' placements and issue no collective."""
+    r = _ok(run[0], f"train/{arch}")["grads"]
+    assert r["bit_equal"] and r["local_bit_equal"], r
+    assert r["placements_kept"], r
+    assert r["n_local"] > 0 and r["local_comms"] == 0, r
+
+
 @pytest.mark.parametrize("arch", gw.KV_SEQ_ARCHS)
 def test_decode_rules_split_the_cache_along_its_slots(run, arch):
     """Under the decode rules of a cache whose kv heads (1) do not divide
@@ -145,8 +203,9 @@ def test_train_step_matches(run, arch):
     assert e_max <= r["err_step"] + 1e-6 and e_frac < 5e-3, r
 
 
-OP_CASES = ["flash batch", "flash heads", "flash batch+heads", "moe groups",
-            "moe experts", "quantize rows", "wkv6 batch", "wkv6 heads"]
+OP_CASES = ["flash batch", "flash heads", "flash batch+heads", "flash q_seq",
+            "moe groups", "moe experts", "quantize rows", "wkv6 batch",
+            "wkv6 heads"]
 
 
 @pytest.mark.parametrize("case", OP_CASES)
