@@ -188,18 +188,25 @@ Phases, each of which raises on failure (the script then exits non-zero):
                the launches and its argument bytes the real arguments',
                exactly; its predicted peak over max_memory_allocated
                (against the bound written in PERF.md) and its roofline
-               bound over the CUDA-event ms, printed; (b) production cells
-               under PyTorch's fake process group on fake CUDA tensors, on
-               the (16, 16) mesh (stablelm-1.6b train_4k, olmoe-1b-7b
-               prefill_32k, deepseek-67b prefill_32k and decode_32k,
-               qwen2-vl-7b, minicpm-2b and whisper-small prefill_32k,
-               jamba-v0.1-52b long_500k) and the
+               bound over the CUDA-event ms, printed; then the train loss
+               on stablelm-1.6b's logits for 4 x 4096 tokens split over
+               the mesh's "model" dim (its vocab-split path), forward and
+               backward: dry-run, then run, its loss and gradient equal to
+               the plain tensors' bit for bit, its predicted peak over
+               max_memory_allocated and its ms printed; (b) production
+               cells under PyTorch's fake process group on fake CUDA
+               tensors, on the (16, 16) mesh (stablelm-1.6b and
+               minicpm-2b train_4k, olmoe-1b-7b prefill_32k, deepseek-67b
+               prefill_32k and decode_32k, qwen2-vl-7b, minicpm-2b and
+               whisper-small prefill_32k, jamba-v0.1-52b long_500k) and the
                (2, 16, 16) one (olmoe-1b-7b prefill_32k): each ok, one JSON
                line each (per-device GB, fits_hbm, the dominant roofline
                term and bound, useful flops, collective bytes by kind,
-               kernel ops, host seconds), each costed as the last rank
-               along "model"; no cell replicates a kernel or moves a
-               stacked layer leaf whole; where the rules split the heads,
+               kernel ops, host seconds, the largest ops by bytes), each
+               costed as the last rank along "model"; no cell replicates
+               a kernel or moves a stacked layer leaf whole, and no train
+               cell whose rules split the vocab has an op of the whole
+               vocab among its largest; where the rules split the heads,
                the per-device flash flops times the ranks that split them
                equal the global flash flops, and where they split the
                query rows (qwen2-vl-7b's, minicpm-2b's and whisper-small's
@@ -374,7 +381,11 @@ MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS = 2, 2
 DRYRUN_NATIVE = [("stablelm-1.6b", "prefill_32k", 1),
                  ("olmoe-1b-7b", "decode_32k", 4)]
 DRYRUN_PEAK_BOUND = (0.9, 1.1)
+# the train loss on the (1, 1) mesh: stablelm-1.6b's logits for batch x
+# seq tokens, the vocab split over "model" (a split of one)
+DRYRUN_LOSS = ("stablelm-1.6b", 4, 4096)
 DRYRUN_CELLS = [(False, [("stablelm-1.6b", "train_4k"),
+                         ("minicpm-2b", "train_4k"),
                          ("olmoe-1b-7b", "prefill_32k"),
                          ("deepseek-67b", "prefill_32k"),
                          ("deepseek-67b", "decode_32k"),
@@ -3081,6 +3092,9 @@ def phase_dryrun(torch, counters, seed: int, card: str):
                 torch, counters, dr, arch, name, batch, mesh, seed, card)
             gc.collect()
             torch.cuda.empty_cache()
+        out["loss"] = _dryrun_loss(torch, dr, mesh, seed, card)
+        gc.collect()
+        torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
     for multi, cells in DRYRUN_CELLS:
@@ -3093,6 +3107,28 @@ def phase_dryrun(torch, counters, seed: int, card: str):
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"dryrun: phase {out['phase_s']:.1f} s [{card}]")
     return launches, out
+
+
+def _measure(torch, rep, run, base: int):
+    """``run()`` twice on the card: the first call's result, the dry run
+    ``rep``'s predicted peak, the first call's peak of
+    ``max_memory_allocated`` above ``base`` (the bytes its arguments
+    hold), and the second call's CUDA-event ms."""
+    mem = rep.memory
+    predicted = (mem["argument_bytes"] + mem["output_bytes"]
+                 + mem["temp_bytes"] - mem["alias_bytes"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    run()
+    end.record()
+    end.synchronize()
+    return out, predicted, peak, start.elapsed_time(end)
 
 
 def _dryrun_native(torch, counters, dr, arch: str, name: str, batch: int,
@@ -3115,8 +3151,6 @@ def _dryrun_native(torch, counters, dr, arch: str, name: str, batch: int,
     rep = DryRunBackend().run(prog)
     roof = dr.roofline_terms(rep, 1)
     mem = rep.memory
-    predicted = (mem["argument_bytes"] + mem["output_bytes"]
-                 + mem["temp_bytes"] - mem["alias_bytes"])
     cfg = dr.get_config(arch)
     sh = MeshSharder(mesh, rules)
     gen = torch.Generator(device="cuda").manual_seed(seed + 22)
@@ -3141,21 +3175,12 @@ def _dryrun_native(torch, counters, dr, arch: str, name: str, batch: int,
                           for t in _leaves(args)))
     for w in counters.values():
         w.launches = 0
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    with torch.no_grad():
-        prog.fn(*args)
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated() - base
-    launched = {n: w.launches for n, w in counters.items()}
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    with torch.no_grad():
-        start.record()
-        prog.fn(*args)
-        end.record()
-    end.synchronize()
-    ms = start.elapsed_time(end)
+
+    def run():
+        with torch.no_grad():
+            prog.fn(*args)
+        return {n: w.launches for n, w in counters.items()}
+    launched, predicted, peak, ms = _measure(torch, rep, run, base)
     want = {n: rep.detail["kernels"].get(OP_OF[n], 0) for n in counters}
     check(launched == want, f"{arch} {name}: launches {launched}, the dry "
                             f"run's kernel ops {rep.detail['kernels']}")
@@ -3181,6 +3206,67 @@ def _dryrun_native(torch, counters, dr, arch: str, name: str, batch: int,
           f"{res['bound_over_measured']:.4f} [{card}]")
     del args, params, batch_t
     return launched, res
+
+
+def _dryrun_loss(torch, dr, mesh, seed: int, card: str) -> dict:
+    """The train loss (``cross_entropy``) and its gradient on logits of
+    ``DRYRUN_LOSS`` split over the "model" dim of the (1, 1) ``mesh``, the
+    labels over "data": dry-run, then run on DTensors drawn from
+    ``seed``.  The loss and the gradient equal the plain tensors' bit for
+    bit (a split of one); the predicted peak over
+    ``max_memory_allocated`` and the CUDA-event ms, printed."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.core.fidelity import DryRunBackend, StepProgram
+    from repro_torch.dist.sharding import NamedSharding
+    from repro_torch.models.common import TensorSpec
+    from repro_torch.models.layers import cross_entropy, padded_vocab
+    arch, b, s = DRYRUN_LOSS
+    cfg = dr.get_config(arch)
+    vp = padded_vocab(cfg)
+    split = NamedSharding(mesh, (Replicate(), Shard(2)))
+    rows = NamedSharding(mesh, (Shard(0), Replicate()))
+
+    def step(logits, labels):
+        loss = cross_entropy(logits, labels, cfg)
+        return loss, torch.autograd.grad(loss, logits)[0]
+    rep = DryRunBackend().run(StepProgram(
+        f"{arch} loss", step, (TensorSpec((b, s, vp), torch.bfloat16, True),
+                               TensorSpec((b, s), torch.int64)),
+        device="cuda", mesh=mesh, in_shardings=(split, rows)))
+    gen = torch.Generator(device="cuda").manual_seed(seed + 23)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    logits = distribute_tensor(torch.randn(
+        b, s, vp, generator=gen, device="cuda", dtype=torch.bfloat16),
+        mesh, split.placements).requires_grad_()
+    labels = distribute_tensor(torch.randint(
+        0, cfg.vocab_size, (b, s), generator=gen, device="cuda"), mesh,
+        rows.placements)
+    (loss, grad), predicted, peak, ms = _measure(
+        torch, rep, lambda: step(logits, labels), base)
+    loss, grad = loss.detach().full_tensor(), grad.full_tensor()
+    plain = logits.full_tensor().detach().requires_grad_()
+    want, want_g = step(plain, labels.full_tensor())
+    want = want.detach()
+    check(bool(torch.isfinite(loss)) and torch.equal(loss, want)
+          and torch.equal(grad, want_g),
+          f"{arch} loss on the vocab-split (1, 1) mesh: {float(loss)} "
+          f"against the plain tensors' {float(want)}, gradients equal "
+          f"{torch.equal(grad, want_g)}")
+    res = {"logits": [b, s, vp], "placements": "(Replicate(), Shard(2))",
+           "loss": float(loss), "predicted_peak_bytes": predicted,
+           "measured_peak_bytes": float(peak), "peak_ratio": predicted / peak,
+           "peak_bound": DRYRUN_PEAK_BOUND, "measured_ms": ms,
+           "collectives": rep.detail["collectives"],
+           "top_bytes": rep.detail["top_bytes"][:3]}
+    print(f"dryrun: {arch} train loss on ({b}, {s}, {vp}) logits split over "
+          f"\"model\" of the (1, 1) mesh: loss {float(loss):.4f} and its "
+          f"gradient bit for bit against plain tensors; predicted peak "
+          f"{predicted / 2**30:.2f} GiB over max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB = {res['peak_ratio']:.4f} (bound "
+          f"{DRYRUN_PEAK_BOUND}); forward and backward {ms:.2f} ms [{card}]")
+    del logits, labels, plain, grad, want_g
+    return res
 
 
 def _dryrun_production(torch, dr, arch: str, name: str, multi: bool,
@@ -3221,6 +3307,12 @@ def _dryrun_production(torch, dr, arch: str, name: str, multi: bool,
     check(res["whole_stacked_moves"] == [],
           f"dry run {arch} {name}: stacked leaves moved whole "
           f"{res['whole_stacked_moves'][:4]}")
+    if shape.kind == "train" and rules.size("vocab") > 1:
+        from repro_torch.models.layers import padded_vocab
+        whole = [n for _, n in res["top_bytes"]
+                 if f", {padded_vocab(cfg)})" in n]
+        check(not whole, f"dry run {arch} {name}: ops of the whole vocab "
+                         f"on a rank whose logits split it: {whole}")
     mem = res["memory"]
     line = {"arch": arch, "shape": name,
             "mesh": "multi" if multi else "single",
@@ -3236,7 +3328,7 @@ def _dryrun_production(torch, dr, arch: str, name: str, multi: bool,
             "costed_coordinate": res["costed_coordinate"],
             "flash_flops": res["kernel_flops"].get("flash_attention"),
             "flops_per_device": res["roofline"]["hlo_flops_per_device"],
-            "card": card}
+            "top_bytes": res["top_bytes"][:3], "card": card}
     print(json.dumps({"dryrun_cell": line}))
     return line
 

@@ -66,8 +66,9 @@ _PER_ELEMENT = {
     aten._log_softmax_backward_data: 4, aten.sigmoid_backward: 3,
     aten.tanh_backward: 3,
     # the one-HLO-op rules of the module docstring: a scatter's output is
-    # its operand's shape, and a cumsum's its input's
-    aten.scatter: 1, aten.scatter_add: 1, aten.masked_fill: 1,
+    # its operand's shape (in place too), and a cumsum's its input's
+    aten.scatter: 1, aten.scatter_add: 1, aten.scatter_add_: 1,
+    aten.masked_fill: 1,
     aten.masked_fill_: 1, aten.cumsum: 1,
 }
 # ops that move data or allocate and compute nothing
@@ -88,10 +89,12 @@ _FREE = {aten.empty, aten.empty_like, aten.empty_strided, aten.new_empty,
          aten.new_empty_strided, aten._unsafe_view, aten.lift_fresh}
 # gathers and index writes: twice the slice they touch (an index write's
 # values are its argument at the index given here; an in-place scatter
-# writes the slice, as a KV-cache write by indexing does)
+# writes the slice, as a KV-cache write by indexing does, and an in-place
+# scatter-add adds into it, as an accumulating ``index_put_`` does)
 _GATHERS = {aten.index, aten.index_select, aten.gather, aten.embedding}
 _INDEX_WRITES = {aten.index_put: 2, aten.index_put_: 2,
-                 aten._index_put_impl_: 2, aten.scatter_: 3}
+                 aten._index_put_impl_: 2, aten.scatter_: 3,
+                 aten.scatter_add_: 3}
 
 
 def _nbytes(t: torch.Tensor) -> float:

@@ -186,6 +186,28 @@ def contiguous_strides(shape: Tuple[int, ...]) -> Tuple[int, ...]:
     return tuple(reversed(strides))
 
 
+def local_shape_and_offset(shape: Tuple[int, ...], mesh: Any,
+                           placements: Tuple[Any, ...]
+                           ) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """This rank's shard of a tensor of ``shape`` laid out by
+    ``placements`` on ``mesh``: its shape and its offset in the global
+    tensor.  Each ``Shard(d)`` splits the part of dim d left by the mesh
+    dims before it as DTensor does (``torch.chunk``: pieces of ceil(size
+    / n)).  Plain integers, so that it also runs inside a
+    ``FakeTensorMode`` (torch 2.13's ``compute_local_shape_and_global_
+    offset`` computes with tensors there)."""
+    coord = mesh.get_coordinate()
+    size, offset = list(shape), [0] * len(shape)
+    for i, p in enumerate(placements):
+        if p.is_shard():
+            d, n = p.dim, mesh.size(i)
+            piece = -(-size[d] // n)
+            start = min(coord[i] * piece, size[d])
+            offset[d] += start
+            size[d] = min(start + piece, size[d]) - start
+    return tuple(size), tuple(offset)
+
+
 def cast(tree: Tree, dtype: torch.dtype,
          device: Optional[torch.device] = None) -> Tree:
     """Cast float leaves to ``dtype`` (and move them to ``device``).

@@ -20,12 +20,14 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed import _functional_collectives as funcol
 from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.models.common import IDENTITY_SHARDER, Sharder, param
+from repro_torch.models.common import (IDENTITY_SHARDER, Sharder,
+                                       local_shape_and_offset, param)
 
 NEG_INF = -1e9
 # devices whose prefill takes the plain attention (the CPU); any other
@@ -579,42 +581,99 @@ def unembed(p: Dict, x: torch.Tensor, cfg,
     return sharder.ac(logits, ("batch", None, "vocab"))
 
 
+class _TokenNLL(torch.autograd.Function):
+    """Each token's negative log-likelihood from one rank's vocab slice of
+    the logits: ``logits`` (b, s, v) holds the global vocab ids ``[lo, lo
+    + v)``, of which those below ``vocab`` are real and the rest padding;
+    ``groups`` are the process groups over which the vocab is split
+    (none for whole logits).  Returns (b, s) f32 (f64 for f64 logits).
+
+    Padding is left out of the max and zeroed after the exponential, so
+    no masked copy of the logits is made, and the label's logit is
+    gathered from the slice that holds it (0 on the other ranks).  The
+    ranks then combine the max, the sum of exponentials and the picked
+    logit: (b, s, 1) each, in f32 (f64 for f64 logits).  The forward
+    holds one f32 tensor of the slice's size, ``logits - max``, at a
+    time.  The backward rebuilds
+    the softmax from the saved logits and log-sum-exp, one f32 tensor,
+    with no collective.  On whole logits every op is one that
+    ``torch.logsumexp``, ``gather`` and autograd compute on the f32
+    logits with the padding masked to ``NEG_INF``, so the loss and the
+    gradient are theirs bit for bit."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, vocab: int, lo: int, groups):
+        v = logits.shape[-1]
+        acc = torch.promote_types(logits.dtype, torch.float32)
+        real = min(max(vocab - lo, 0), v)
+        idx = labels.long()[..., None] - lo
+        mine = (idx >= 0) & (idx < v)
+        idx = idx.clamp(0, v - 1)
+        if real:
+            m = logits[..., :real].amax(dim=-1, keepdim=True).to(acc)
+        else:
+            m = logits.new_full(idx.shape, NEG_INF, dtype=acc)
+        m = _all_reduce(m, "max", groups)
+        picked = torch.where(mine, logits.gather(-1, idx).to(acc), 0.0)
+        e = torch.sub(logits, m).exp_()
+        if real < v:
+            e[..., real:] = 0.0
+        sums = e.sum(dim=-1, keepdim=True)
+        del e
+        if groups:
+            sums, picked = _all_reduce(torch.cat([sums, picked], -1), "sum",
+                                       groups).split(1, dim=-1)
+        lse = sums.log_().add_(m)
+        ctx.save_for_backward(logits, idx, mine, lse)
+        ctx.real = real
+        return (lse - picked)[..., 0]
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, idx, mine, lse = ctx.saved_tensors
+        g = g[..., None]
+        grad = torch.sub(logits, lse).exp_().mul_(g)
+        if ctx.real < grad.shape[-1]:
+            grad[..., ctx.real:] = 0.0
+        grad.scatter_add_(-1, idx, torch.where(mine, -g, 0.0))
+        return grad.to(logits.dtype), None, None, None, None
+
+
+def _all_reduce(t: torch.Tensor, op: str, groups) -> torch.Tensor:
+    """``t`` reduced by ``op`` over each process group in turn."""
+    for group in groups:
+        t = funcol.wait_tensor(funcol.all_reduce(t, op, group))
+    return t
+
+
+# the roles of the loss's arguments for ``per_shard``: the logits by
+# their rows and vocab, the labels by their rows
+_NLL_ROLES = (("b", "s", "v"), ("b", "s"))
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, cfg,
-                  mask: Optional[torch.Tensor] = None,
-                  sharder: Sharder = IDENTITY_SHARDER) -> torch.Tensor:
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean next-token cross entropy in f32; the padded vocab entries are
     masked out; logits (b, s, Vp).
 
-    On a mesh (DTensor logits) the label's logit is picked by a one-hot
-    of the vocab ids laid out like the logits: its backward stays on
-    each rank's rows and vocab slice, where ``gather``'s backward builds
-    a zero gradient of the global logits' shape on every rank.  A mesh
-    that splits the vocab also keeps the log-sum-exp's reductions split:
-    spelled out as ``torch.logsumexp`` computes it (max, then the sum of
-    exponentials), each rank reduces its slice and DTensor combines the
-    partial results.  The values are those of the plain path, bit for
-    bit on the CPU (a one-hot pick adds only zeros to the label's
-    logit)."""
-    vp = logits.shape[-1]
-    logits = logits.float()
-    if vp != cfg.vocab_size:
-        pad_mask = torch.arange(vp, device=logits.device) < cfg.vocab_size
-        logits = torch.where(pad_mask, logits, NEG_INF)
-    labels = labels.long()[..., None]
-    if sharder.axis_size("vocab") > 1:
-        m = logits.detach().amax(dim=-1, keepdim=True)
-        lse = (logits - m).exp().sum(dim=-1, keepdim=True).log() + m
-    else:
-        lse = torch.logsumexp(logits, dim=-1, keepdim=True)
+    On a mesh (DTensor logits) each rank computes its tokens' losses from
+    its own shard of the logits (``per_shard``): where the vocab is split
+    it holds the slice ``[lo, lo + v)``, and the ranks that split it
+    combine three (b, s, 1) partial results (``_TokenNLL``), so no op
+    has an operand of the whole vocab.  The values are those of the
+    plain path, bit for bit where the vocab is whole."""
+    vocab = cfg.vocab_size
     if isinstance(logits, DTensor):
-        ids = sharder.ac(torch.arange(vp, device=logits.device), ("vocab",))
-        picked = torch.where(ids == labels, logits, 0.0).sum(dim=-1,
-                                                             keepdim=True)
+        mesh, placements = logits.device_mesh, tuple(logits.placements)
+        _, offset = local_shape_and_offset(tuple(logits.shape), mesh,
+                                           placements)
+        groups = [mesh.get_group(i) for i, p in enumerate(placements)
+                  if p.is_shard(logits.dim() - 1)]
+        nll = per_shard(
+            lambda x, y: _TokenNLL.apply(x, y, vocab, offset[-1], groups),
+            _NLL_ROLES, ("b", "s"), logits, labels)
     else:
-        picked = torch.gather(logits, -1, labels)
-    # the difference is taken before the label dim is dropped: on logits
-    # split over the vocab, DTensor sums the gathered shards at this shape
-    nll = (lse - picked)[..., 0]
+        nll = _TokenNLL.apply(logits, labels, vocab, 0, ())
     if mask is None:
         return nll.mean()
     mask = mask.float()

@@ -135,7 +135,7 @@ def loss_and_grads(model: Model, opts: TrainOptions, params: Dict,
         logits, aux = model.train_logits(params, batch, chunk=opts.chunk,
                                          sharder=sharder)
         loss = cross_entropy(logits, batch["labels"], model.cfg,
-                             mask=batch.get("mask"), sharder=sharder)
+                             mask=batch.get("mask"))
         total = loss + opts.aux_weight * aux
     grads = torch.autograd.grad(total, list(leaves(params)),
                                 allow_unused=True, materialize_grads=True)

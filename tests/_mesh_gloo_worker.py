@@ -4,6 +4,7 @@ runs on every one of 4 gloo ranks of the CPU inside one process group
 parent process holds the results against the JAX package.
 """
 
+import dataclasses
 import datetime
 import time
 import traceback
@@ -22,8 +23,10 @@ from repro_torch.dist.sharding import MeshSharder, make_rules
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import build_model
 from repro_torch.models.common import leaves, leaves_with_path, map_leaves
+from repro_torch.models.layers import cross_entropy, padded_vocab
 from repro_torch.train import (TrainOptions, build_train_step,
                                init_train_state, lr_at, train_state_specs)
+from repro_torch.train.step import loss_and_grads
 
 ARCHS = sorted(REGISTRY)
 # kv heads that do not divide "model": the decode rules split the cache
@@ -39,6 +42,11 @@ Q_SEQ_ARCHS = ("stablelm-1.6b", "qwen2-vl-7b", "whisper-small")
 Q_SEQ_RULES = {"heads": None, "kv_heads": None, "kv_heads_c": None,
                "q_seq": ("model",)}
 STACKS = ("layers", "enc_layers", "dec_layers")
+# the loss alone on logits laid out as ``unembed`` lays them out, by
+# vocab size: one that "model" splits (smoke's 256), one it splits with
+# padding (254, padded to 256) and one it does not split (255, padded to
+# 256: whole on every rank)
+XENT_VOCABS = (256, 254, 255)
 RESTORE_MESHES = ((4, 1), (1, 4))
 WORLD = 4
 B, S, CAP = 2, 16, 20            # batch, prompt length, cache capacity
@@ -183,6 +191,75 @@ def _serve_kv_seq(arch, mesh):
             "cache_err": cache_err}
 
 
+def _xent(vocab, mesh):
+    """``cross_entropy`` (masked) on DTensor logits laid out by the train
+    rules of smoke stablelm with ``vocab``, against plain tensors: the
+    loss and the logits' gradient, relative to their largest values, and
+    each rank's local logits' width."""
+    cfg = dataclasses.replace(smoke(get_config("stablelm-1.6b")),
+                              vocab_size=vocab)
+    vp = padded_vocab(cfg)
+    sh = _sharder(cfg, mesh, TRAIN_B, S, "train")
+    g = torch.Generator().manual_seed(vocab)
+    logits = 3.0 * torch.randn(TRAIN_B, S, vp, generator=g)
+    batch = {"labels": torch.randint(0, vocab, (TRAIN_B, S), generator=g),
+             "mask": (torch.rand(TRAIN_B, S, generator=g) > 0.25).float()}
+    x = logits.clone().requires_grad_()
+    want = cross_entropy(x, batch["labels"], cfg, batch["mask"])
+    want.backward()
+    dbatch = sh.distribute(batch, sh.batch_shardings(batch))
+    with sh.scope():
+        dx = sh.ac(logits, ("batch", None, "vocab")).detach()
+        dx.requires_grad_()
+        got = cross_entropy(dx, dbatch["labels"], cfg, dbatch["mask"])
+        got.backward()
+    return {"loss": abs(float(got.full_tensor()) - float(want))
+            / abs(float(want)),
+            "grad": _rel(dx.grad, x.grad),
+            "local_vocab": dx.to_local().shape[-1], "padded_vocab": vp,
+            "vocab_split": sh.axis_size("vocab")}
+
+
+def _loss_grads(arch, mesh, dtype=torch.float32):
+    """``loss_and_grads`` of smoke ``arch`` in ``dtype`` on DTensor params
+    and batch (the train rules) against plain tensors: the loss relative
+    to itself;
+    the gradients' largest difference relative to the largest gradient
+    (``grad``), as the logits' check does; the unembedding leaf's (the
+    head, or the tied table), where the loss's gradient enters the
+    model, relative to its own largest value (``unembed``); and the leaf
+    whose difference is largest relative to its own largest value
+    (``worst_leaf``)."""
+    cfg = smoke(get_config(arch))
+    model = build_model(cfg, dtype)
+    opts = TrainOptions(warmup=0, total_steps=10)
+    sh = _sharder(cfg, mesh, TRAIN_B, S, "train")
+    params = init_train_state(model, 0, opts, "cpu")["params"]
+    dparams = sh.distribute(params,
+                            sh.param_shardings(model.param_specs()[1]))
+    batch = _batch(cfg, TRAIN_B, S, 3, train=True)
+    dbatch = sh.distribute(batch, sh.batch_shardings(batch))
+    grads, loss, _ = loss_and_grads(model, opts, params, batch)
+    with sh.scope():
+        dgrads, dloss, _ = loss_and_grads(model, opts, dparams, dbatch, sh)
+    diffs = {path: (float((dg.full_tensor() - g).abs().max()),
+                    float(g.abs().max()))
+             for (path, dg), g in zip(leaves_with_path(dgrads),
+                                      leaves(grads))}
+
+    def rel(d, top):
+        return d / top if top else (0.0 if d == 0 else float("inf"))
+    top = max(t for _, t in diffs.values())
+    worst = max(diffs, key=lambda p: rel(*diffs[p]))
+    return {"loss": abs(float(dloss.full_tensor()) - float(loss))
+            / abs(float(loss)),
+            "grad": max(d for d, _ in diffs.values()) / top,
+            "unembed": rel(*diffs["embed/table" if cfg.tie_embeddings
+                                  else "embed/head"]),
+            "worst_leaf": [worst, rel(*diffs[worst])],
+            "vocab_split": sh.axis_size("vocab")}
+
+
 def _grads_and_compress(model, opts, sh, axes, dstate, dbatch):
     """The gradients of the sharded state as they leave autograd: for
     each stacked leaf, whether it has its param's placements (a
@@ -195,7 +272,6 @@ def _grads_and_compress(model, opts, sh, axes, dstate, dbatch):
     from torch.distributed.tensor import Replicate
     from torch.distributed.tensor.debug import CommDebugMode
     from repro_torch.optim import compress
-    from repro_torch.train.step import loss_and_grads
     params = dstate["params"]
     with sh.scope():
         grads, _, _ = loss_and_grads(model, opts, params, dbatch, sh)
@@ -481,6 +557,12 @@ def _worker(rank, store, out):
             _case(results, f"kv_seq/{arch}", _serve_kv_seq, arch, mesh)
         for arch in TRAIN_ARCHS:
             _case(results, f"train/{arch}", _train, arch, mesh, out)
+        for vocab in XENT_VOCABS:
+            _case(results, f"xent/{vocab}", _xent, vocab, mesh)
+        for arch in ARCHS:
+            _case(results, f"loss/{arch}", _loss_grads, arch, mesh)
+        _case(results, "loss64/rwkv6-7b", _loss_grads, "rwkv6-7b", mesh,
+              torch.float64)
         _case(results, "jax_logits", _jax_logits, mesh, out)
         _case(results, "save_fails", _save_fails, mesh, out)
         _case(results, "ops", _ops, mesh)

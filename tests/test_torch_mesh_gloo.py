@@ -23,6 +23,15 @@ never share a rendezvous).  f32 compute at smoke size.
   its param's placements, and the compress of the gradients laid out
   like the params is bit-equal to the replicated path and issues no
   collective for the leaves whose blocks stay local.
+* The loss (``cross_entropy``) on logits laid out as the train rules
+  lay them out, for a vocab that "model" splits (with and without
+  padding) and one it does not: the loss and the logits' gradient within
+  1e-5 of the unsharded port, each rank holding its share of the vocab.
+  Every arch's ``loss_and_grads`` on DTensor params and batch: the loss
+  and the unembedding leaf's gradient within 1e-5 of the unsharded
+  port's, the gradients within 1e-5 of the largest gradient (rwkv6's
+  2e-5: ``GRAD_TOL``), and rwkv6's gap shrinking 10 times or more in
+  f64, so rounding.
 * smoke stablelm's sharded prefill against the JAX package's
   ``lm_apply`` on the same params, directly.
 * A distributed save whose write fails on rank 0 raises on every rank,
@@ -183,6 +192,56 @@ def test_decode_rules_split_the_cache_along_its_slots(run, arch):
     assert len(r["errs"]) == 1 + gw.KV_SEQ_STEPS
     assert max(r["errs"]) <= gw.LOGIT_TOL, r
     assert r["cache_err"] <= 1e-5, r
+
+
+@pytest.mark.parametrize("vocab", gw.XENT_VOCABS)
+def test_loss_on_vocab_split_logits_matches_unsharded(run, vocab):
+    """A vocab that "model" (2) divides is split over it, each rank
+    holding half the padded vocab; one it does not divide is whole on
+    every rank.  The loss and the logits' gradient are within 1e-5 of
+    the plain tensors' (relative to the loss and the largest gradient)."""
+    r = _ok(run[0], f"xent/{vocab}")
+    assert r["vocab_split"] == (2 if vocab % 2 == 0 else 1), r
+    assert r["local_vocab"] * r["vocab_split"] == r["padded_vocab"], r
+    assert r["loss"] <= 1e-5 and r["grad"] <= 1e-5, r
+
+
+# the gradients' bound, of the largest gradient: 1e-5, as the logits'.
+# rwkv6's recurrence runs its backward through products of decays over
+# the sequence, and its sums in another order on the mesh differ by
+# 1.12e-5 of the largest gradient (``layers/mixer/lora_b`` 1.93e-5 of
+# its own; every other arch 3.2e-6 or less), as they did (1.17e-5) when
+# the loss's pick ran on the whole vocab: its loss and its head's
+# gradient agree to 0 and 8.5e-7.  That the gap is rounding and no
+# sharding fault, ``test_rwkv6_loss_gradient_gap_is_rounding`` shows
+GRAD_TOL = {"rwkv6-7b": 2e-5}
+
+
+@pytest.mark.parametrize("arch", gw.ARCHS)
+def test_sharded_loss_and_gradients_match_unsharded(run, arch):
+    """Every arch's loss and gradients on the (2, 2) mesh, the vocab
+    split over "model", against the unsharded port's: the loss within
+    1e-5 of itself, the gradients within ``GRAD_TOL`` of the largest
+    gradient (as the logits' check), and the unembedding leaf, where the
+    loss's gradient enters the model, within 1e-5 of its own largest
+    value."""
+    r = _ok(run[0], f"loss/{arch}")
+    assert r["vocab_split"] == 2, r
+    assert r["loss"] <= 1e-5 and r["unembed"] <= 1e-5, r
+    assert r["grad"] <= GRAD_TOL.get(arch, 1e-5), r
+
+
+def test_rwkv6_loss_gradient_gap_is_rounding(run):
+    """rwkv6's case in f64 (the model computes in f64 around its f32
+    recurrence and norms; the master gradients are f32): the sharded
+    gradients' gap to the unsharded falls to 3.3e-7 of the largest
+    gradient, 34 times below f32's, and the loss to 1.5e-16.  Rounding
+    shrinks with the precision; a wrong term on the mesh (a missing sum
+    over a shard, a wrong offset) would keep its size."""
+    r32, r64 = _ok(run[0], "loss/rwkv6-7b"), _ok(run[0], "loss64/rwkv6-7b")
+    assert r64["loss"] <= 1e-12, r64
+    assert r64["grad"] <= 1e-6 and 10 * r64["grad"] <= r32["grad"], (r32,
+                                                                     r64)
 
 
 @pytest.mark.parametrize("arch", gw.TRAIN_ARCHS)
