@@ -49,6 +49,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
                4 and 8 slots and of C > 1 folded into one row tile, then at
                jamba-v0.1-52b's and mixtral-8x22b's widths (d_ff 14336 and
                16384: the split schedule), timed at their prefill shapes;
+               mixtral's prefill blocks through 16 calls on d_ff slices of
+               1024 columns, as the op's d_ff layout runs each rank's
+               slice on the (16, 16) mesh, their sum against the whole
+               call, and the slice's call timed against its bound;
                quantize bit for bit over the sweep of tests/test_kernels.py
                x block {128, 256}, ragged lengths and edge rows; wkv6 over
                the sweep of tests/test_kernels.py, strong and slow decay,
@@ -198,7 +202,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
                tensors, on the (16, 16) mesh (stablelm-1.6b and
                minicpm-2b train_4k, olmoe-1b-7b prefill_32k, deepseek-67b
                prefill_32k and decode_32k, qwen2-vl-7b, minicpm-2b and
-               whisper-small prefill_32k, jamba-v0.1-52b long_500k) and the
+               whisper-small prefill_32k, jamba-v0.1-52b long_500k,
+               mixtral-8x22b decode_32k: its experts' d_ff split) and the
                (2, 16, 16) one (olmoe-1b-7b prefill_32k): each ok, one JSON
                line each (per-device GB, fits_hbm, the dominant roofline
                term and bound, useful flops, collective bytes by kind,
@@ -301,6 +306,10 @@ MOE_LARGE_F = [(1, 16, 256, 4096, 14336), (4, 16, 1, 4096, 14336),
                (1, 8, 640, 6144, 16384), (4, 8, 1, 6144, 16384)]
 MOE_LARGE_F_PREFILL = {"jamba-v0.1-52b": MOE_LARGE_F[0],
                        "mixtral-8x22b": MOE_LARGE_F[2]}
+# mixtral-8x22b's 8 experts do not divide the 16 ranks of "model": its
+# rules split the experts' d_ff, and each rank's expert_mlp call runs its
+# slice of 16384 / 16 columns (the op's d_ff layout, a partial sum)
+MOE_D_FF_SLICES = 16
 # wkv6: (b, s, h, n, chunk), tests/test_kernels.py's sweep, then ragged
 # lengths and rwkv6-7b's heads at the model phase's length
 WKV_SWEEP = [(2, 128, 2, 64, 64), (1, 256, 4, 32, 32), (2, 64, 1, 16, 16),
@@ -392,7 +401,8 @@ DRYRUN_CELLS = [(False, [("stablelm-1.6b", "train_4k"),
                          ("qwen2-vl-7b", "prefill_32k"),
                          ("minicpm-2b", "prefill_32k"),
                          ("whisper-small", "prefill_32k"),
-                         ("jamba-v0.1-52b", "long_500k")]),
+                         ("jamba-v0.1-52b", "long_500k"),
+                         ("mixtral-8x22b", "decode_32k")]),
                 (True, [("olmoe-1b-7b", "prefill_32k")])]
 # each wrapper's custom op, by the counters' names
 OP_OF = {"flash_attention": "flash_attention", "moe_mlp": "expert_mlp",
@@ -1427,6 +1437,39 @@ def phase_moe_large_f(torch, moe_ops, card: str) -> list:
     return times
 
 
+def phase_moe_d_ff_slices(torch, moe_ops, card: str) -> dict:
+    """The arithmetic of the op's d_ff layout on the card: mixtral-8x22b's
+    prefill blocks (``MOE_LARGE_F_PREFILL``) through ``MOE_D_FF_SLICES``
+    kernel calls, each on one slice of d_ff (wi's and wg's columns, wo's
+    rows), whose outputs summed in f32 (the partial sums a mesh reduces)
+    must match the whole call within the sweep's bf16 tolerance; then the
+    slice's call timed (``phase_moe_timing``: its plain version, three
+    torch.bmm and its bound)."""
+    g, e, c, d, f = MOE_LARGE_F_PREFILL["mixtral-8x22b"]
+    n = f // MOE_D_FF_SLICES
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    x, wi, wg, wo = _moe_inputs(torch, gen, g, e, c, d, f, torch.bfloat16)
+    whole = moe_ops.expert_mlp(x, wi, wg, wo)
+    total = torch.zeros(whole.shape, dtype=torch.float32, device="cuda")
+    for lo in range(0, f, n):
+        total += moe_ops.expert_mlp(x, wi[:, :, lo:lo + n],
+                                    wg[:, :, lo:lo + n],
+                                    wo[:, lo:lo + n]).float()
+    ok, err = _moe_close(torch, total, whole, "bfloat16")
+    print(f"moe d_ff slices G={g} E={e} C={c} D={d}: the sum of "
+          f"{MOE_D_FF_SLICES} calls on F={n} slices against the whole "
+          f"F={f} call: max_abs_err={err:.3e} tol={MOE_TOL['bfloat16']} "
+          f"{'ok' if ok else 'FAIL'} [{card}]")
+    check(ok, f"moe_mlp: the d_ff slices' sum disagrees with the whole "
+              f"call ({err})")
+    del x, wi, wg, wo, whole, total
+    t = phase_moe_timing(torch, moe_ops, (g, e, c, d, n),
+                         "mixtral-8x22b prefill, one rank's d_ff slice", card)
+    return {"slices": MOE_D_FF_SLICES, "sum_max_abs_err": err, **t,
+            "shape": _moe_shape((g, e, c, d, n))
+            + " (mixtral-8x22b prefill, a rank's d_ff slice on (16, 16))"}
+
+
 def _wkv_inputs(torch, gen, b, s, h, n, dtype, w0_lo=-6.0, w0_hi=1.0):
     """r, k, v (b, s, h, n) in dtype; lw = -exp(w0 + 0.5 N(0, 1)) in f32
     with w0 drawn per channel on [w0_lo, w0_hi], as the model feeds it; u
@@ -2303,6 +2346,7 @@ def main() -> int:
     t_shard = phase_shard_timing(torch, ops, card)
     phase_moe_sweep(torch, moe_ops)
     t_large_f = phase_moe_large_f(torch, moe_ops, card)
+    t_d_ff = phase_moe_d_ff_slices(torch, moe_ops, card)
     phase_quantize_sweep(torch, q_ops, quantize_plain)
     phase_wkv_sweep(torch, w_ops)
     counters = {"flash_attention": ops.flash_attention,
@@ -2517,7 +2561,7 @@ def main() -> int:
          "launches_by_path": {a: v["moe_mlp"] for a, v in by_path.items()},
          **tm, "shape": _moe_shape(MOE_PREFILL) + " (prefill)",
          "decode": {**td, "shape": _moe_shape(MOE_DECODE)},
-         "large_d_ff": t_large_f,
+         "large_d_ff": t_large_f, "d_ff_slice": t_d_ff,
          "jamba_decode": {**td_jamba,
                           "shape": _moe_shape(JAMBA_MOE_DECODE)
                           + " (jamba-v0.1-52b decode)"}},

@@ -189,7 +189,8 @@ class DryRunBackend(Backend):
     ``detail["unknown_ops"]`` the calls of ops that ``op_cost`` has no
     flops rule for (costed at 0 flops and their bytes);
     ``detail["collectives"]``, ``["copy_bytes"]``, ``["moves"]``,
-    ``["top_dots"]`` and ``["top_bytes"]`` are ``CostMode``'s.
+    ``["top_dots"]`` and ``["top_bytes"]`` are ``CostMode``'s, and
+    ``["replicated_kernels"]`` its ``replicated``.
 
     The step may not read a value back to the host (``.item()``,
     ``int(tensor)``): a fake tensor has none.  The train and prefill
@@ -235,6 +236,7 @@ class DryRunBackend(Backend):
         rep.detail["top_dots"] = cost.top_dots
         rep.detail["top_bytes"] = cost.top_bytes
         rep.detail["moves"] = cost.moves
+        rep.detail["replicated_kernels"] = cost.replicated
         return rep
 
 

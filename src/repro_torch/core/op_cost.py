@@ -37,6 +37,11 @@ operand bytes per device and its group's size (``hlo_cost``'s
 ``collectives``; the ``wait_tensor`` after each is free).  DTensor's own
 shape propagation (its op run once at global shapes on fresh tensors)
 is not the step's work and is not costed.
+
+``CostMode.replicated`` lists each kernel call on DTensors that ran with
+an operand gathered over a mesh dim that split it: where the kernel's
+strategy has no layout for the split it is given, DTensor gathers the
+operand there and every rank of that dim runs the same call.
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ from typing import Dict, List, Tuple
 
 import torch
 from torch.distributed.tensor import DTensor
+from torch.distributed.tensor._dtensor_spec import DTensorSpec
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
@@ -241,7 +247,10 @@ class CostMode(TorchDispatchMode):
     dots by flops and ops by bytes, ``(value, "op [local shapes]")``;
     ``moves`` lists each collective and ``cat`` as ``(op, shapes)``, the
     shapes of its tensor operands and outputs (what a check for a
-    tensor moved or rebuilt whole reads).
+    tensor moved or rebuilt whole reads).  ``replicated`` maps a kernel's
+    name to ``{"calls": n, "gathered": {argument: [mesh dims]}}`` for its
+    calls on DTensors that gathered some argument over a mesh dim (of
+    more than one rank) that split it (``_observe_redistribution``).
 
     ``peak_bytes`` is the peak of the storage the step's ops created and
     that was alive at once (each storage once, its views and in-place
@@ -260,6 +269,7 @@ class CostMode(TorchDispatchMode):
         self.top_dots: List[Tuple[float, str]] = []
         self.top_bytes: List[Tuple[float, str]] = []
         self.moves: List[Tuple[str, List[Tuple[int, ...]]]] = []
+        self.replicated: Dict[str, Dict] = {}
         self.live_bytes = 0.0
         self.peak_bytes = 0.0
         self.created: Dict[int, float] = {}      # id(storage) -> bytes
@@ -351,6 +361,18 @@ class CostMode(TorchDispatchMode):
                     self._propagating -= 1
             setattr(owner, name, bookkeeping)
             self._patched.append((owner, name, run))
+        # DTensor redistributes an op's arguments to the layout its
+        # strategy picked here (a static method; taken from the class's
+        # dict to be put back as one)
+        dispatcher = type(DTensor._op_dispatcher)
+        redistribute = dispatcher.__dict__["redistribute_local_args"]
+
+        def observed(op_info, schema, *args, **kwargs):
+            self._observe_redistribution(op_info, schema)
+            return redistribute.__func__(op_info, schema, *args, **kwargs)
+        dispatcher.redistribute_local_args = staticmethod(observed)
+        self._patched.append((dispatcher, "redistribute_local_args",
+                              redistribute))
         return super().__enter__()
 
     def __exit__(self, *exc):
@@ -361,6 +383,37 @@ class CostMode(TorchDispatchMode):
                 setattr(owner, name, run)
         self._patched = []
         return super().__exit__(*exc)
+
+    def _observe_redistribution(self, op_info, schema) -> None:
+        """Record a kernel call whose arguments DTensor redistributes
+        from ``op_info``'s layouts to ``schema``'s: each argument split
+        over a mesh dim of more than one rank that the call takes
+        replicated there."""
+        op = schema.op
+        if op.namespace != "repro_torch":
+            return
+        want = (tree_leaves(schema.args_schema)
+                if op_info.args_tree_spec is not None
+                else schema.args_schema)
+        names = [a.name for a in op._schema.arguments]
+        gathered: Dict[str, List[str]] = {}
+        for i, (have, to) in enumerate(zip(op_info.flat_args_schema, want)):
+            if not isinstance(have, DTensorSpec):
+                continue
+            mesh = have.mesh
+            for dim, (p, q) in enumerate(zip(have.placements,
+                                             to.placements)):
+                if p.is_shard() and q.is_replicate() and mesh.size(dim) > 1:
+                    gathered.setdefault(names[i], []).append(
+                        mesh.mesh_dim_names[dim] if mesh.mesh_dim_names
+                        else str(dim))
+        if gathered:
+            entry = self.replicated.setdefault(
+                op.overloadpacket.__name__, {"calls": 0, "gathered": {}})
+            entry["calls"] += 1
+            for arg, dims in gathered.items():
+                have = entry["gathered"].setdefault(arg, [])
+                have.extend(d for d in dims if d not in have)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}

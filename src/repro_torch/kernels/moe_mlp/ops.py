@@ -20,13 +20,18 @@ schedule and the count; its fake implementation gives the output's shape,
 dtype and strides, so a dry run on fake tensors sees one op, costed by
 ``cost``, and launches nothing.  On DTensors it runs on each rank's
 local capacity blocks, split over groups (the weights replicated) or over
-experts (each rank's experts' weights), as ``sharding`` lists.
+experts (each rank's experts' weights), or on every block with each
+rank's slice of d_ff (the weights split along F, JAX's "mlp" layout where
+the experts do not divide the mesh dim): SwiGLU is column-wise in F, so
+each rank's call is the same kernel on its F columns, and its output is
+that rank's share of the down projection's sum, a partial sum that the
+model reduces where JAX's layout does.  ``sharding`` lists the layouts.
 """
 
 from __future__ import annotations
 
 import torch
-from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor import Partial, Replicate, Shard
 
 from repro_torch.kernels import refuse_autograd, register_op
 from repro_torch.kernels.moe_mlp import kernel
@@ -74,18 +79,25 @@ def expert_mlp(x: torch.Tensor, wi: torch.Tensor, wg: torch.Tensor,
         return expert_mlp_plain(x, wi, wg, wo)
     if x.device.type != "cuda":
         raise ValueError(f"no expert_mlp for device {x.device}")
-    g, e, c, d = x.shape
-    f = wi.shape[2]
+    _check_launch(x.shape, wi.shape[2])
+    return OP(x, wi, wg, wo)
+
+
+def _check_launch(x_shape, f: int) -> None:
+    """The kernel's shape limits, on the shapes it is launched at: the
+    wrapper's (global) ones, and each rank's local ones (a rank's slice
+    of d_ff), where the op's CUDA implementation is called."""
+    g, e, c, d = x_shape
     if d % 32 or f % 128:
         raise ValueError(f"the kernel needs D % 32 == 0 and F % 128 == 0; "
                          f"got D={d}, F={f}")
     if e > _MAX_GRID_Y:
         raise ValueError(f"E = {e} exceeds the grid ({_MAX_GRID_Y})")
-    return OP(x, wi, wg, wo)
 
 
 def _expert_mlp_cuda(x, wi, wg, wo):
     """The counted launch on checked CUDA inputs."""
+    _check_launch(x.shape, wi.shape[2])
     x, wi, wg, wo = (t.contiguous() for t in (x, wi, wg, wo))
     if any(t.data_ptr() % 16 for t in (x, wi, wg, wo)):
         raise ValueError("the kernel loads 16-byte vectors: x and the "
@@ -114,11 +126,16 @@ def cost(x_shape, w_shape, dtype: torch.dtype):
 
 def sharding(x, wi, wg, wo):
     """DTensor layouts of one mesh dim: all replicated; x and the output
-    split over groups with the weights replicated; or over experts, x's
-    dim 1 with the weights' dim 0."""
-    r, s0, s1 = Replicate(), Shard(0), Shard(1)
+    split over groups with the weights replicated; over experts, x's dim
+    1 with the weights' dim 0; or over d_ff, x replicated, wi and wg
+    split along F (dim 2) and wo along F (dim 1), the output each rank's
+    partial sum of the down projection.  The d_ff layout is listed last:
+    of layouts that cost DTensor the same redistribution (a local slice
+    of a replicated tensor costs none), it takes the first listed, so a
+    mesh dim that splits no weight along F makes no partial sum."""
+    r, s0, s1, s2 = Replicate(), Shard(0), Shard(1), Shard(2)
     return [([r], [r, r, r, r]), ([s0], [s0, r, r, r]),
-            ([s1], [s1, s0, s0, s0])]
+            ([s1], [s1, s0, s0, s0]), ([Partial()], [r, s2, s2, s1])]
 
 
 OP = register_op("expert_mlp",

@@ -45,13 +45,13 @@ coordinate on the mesh), ``whole_stacked_moves`` (the collectives and
 ``cat`` ops of the stream with an operand or output at the global shape
 of a stacked layer leaf that the cell's layout splits: a gradient of
 such a leaf reduced or rebuilt whole; ``stacked_moves_of``), and
-``replicated_kernels``: the kernels whose inputs the cell's layout
-splits over a mesh axis that the kernel cannot take, so that they would
-run on all of it there.  There is none: flash
-takes the batch, the heads and, in a context-parallel "q_seq" cell, its
-query rows (each rank's call is given its rows' offset,
-``flash_attention_rows``); the key stays, empty, so that a reader can
-hold a cell to it.
+``replicated_kernels``: by kernel, the calls of the costed stream that
+ran with an argument gathered over a mesh dim that the cell's layout
+split it over (the kernel's strategy had no layout for that split, so
+every rank of that dim ran the same call), as ``{"calls": n,
+"gathered": {argument: [mesh dims]}}``
+(``core.op_cost.CostMode.replicated``); empty where every kernel ran on
+its shards.
 
 Constants: one NVIDIA H100 SXM5 (dense bf16 tensor-core peak, HBM3 rate
 and size, NVLink 4 rate per direction).  A 16-wide mesh axis spans two
@@ -329,7 +329,7 @@ def dryrun_cell(arch: str, shape_name: str, multi_pod: bool = False,
         "kernels": rep.detail["kernels"],
         "kernel_flops": _kernel_flops(rep),
         "unknown_ops": rep.detail["unknown_ops"],
-        "replicated_kernels": {},
+        "replicated_kernels": rep.detail["replicated_kernels"],
         "whole_stacked_moves": stacked_moves_of(
             rep, split_stacked_shapes(arch, rules, mesh)),
         "costed_rank": dist.get_rank() if dist.is_initialized() else 0,

@@ -28,9 +28,12 @@ In prefill and decode, with a SwiGLU activation, the expert compute
 goes through ``expert_mlp`` on every device: the hand-written kernel on
 the card, its plain version on the CPU, both in f32 as the TPU kernel
 computes it (the JAX model's einsum path rounds h to the compute dtype).
-The train mode, and every other activation, take the einsum path of the
-JAX function under autograd (the kernel is forward-only, in both
-packages).
+On a mesh whose rules split the expert weights' d_ff ("mlp": the experts
+do not divide the mesh dim), the kernel runs on each rank's slice of it
+and its output is a partial sum, reduced at the "moe_d" constraint where
+JAX's layout reduces its einsum path's.  The train mode, and every other
+activation, take the einsum path of the JAX function under autograd (the
+kernel is forward-only, in both packages).
 """
 
 from __future__ import annotations

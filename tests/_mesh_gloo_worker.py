@@ -41,6 +41,10 @@ TRAIN_ARCHS = ("stablelm-1.6b", "olmoe-1b-7b")
 Q_SEQ_ARCHS = ("stablelm-1.6b", "qwen2-vl-7b", "whisper-small")
 Q_SEQ_RULES = {"heads": None, "kv_heads": None, "kv_heads_c": None,
                "q_seq": ("model",)}
+# smoke mixtral with its experts whole: "model" splits the expert
+# weights' d_ff ("mlp") instead, as the production rules do where the
+# experts do not divide the model axis
+D_FF_ARCH, D_FF_RULES = "mixtral-8x22b", {"experts": None}
 STACKS = ("layers", "enc_layers", "dec_layers")
 # the loss alone on logits laid out as ``unembed`` lays them out, by
 # vocab size: one that "model" splits (smoke's 256), one it splits with
@@ -79,9 +83,10 @@ def _batch(cfg, b, s, seed, train=False):
     return batch
 
 
-def _sharder(cfg, mesh, b, s, kind):
-    return MeshSharder(mesh, make_rules(cfg, ShapeConfig("gloo", s, b, kind),
-                                        mesh))
+def _sharder(cfg, mesh, b, s, kind, rules_override=None):
+    rules = make_rules(cfg, ShapeConfig("gloo", s, b, kind), mesh)
+    rules.mapping.update(rules_override or {})
+    return MeshSharder(mesh, rules)
 
 
 def _rel(got, want):
@@ -89,12 +94,14 @@ def _rel(got, want):
                  / want.abs().max())
 
 
-def _serve(arch, mesh):
-    """Prefill and one decode step, sharded against plain."""
+def _serve(arch, mesh, rules_override=None):
+    """Prefill and one decode step, sharded against plain; under
+    ``rules_override``, the dim that each mesh dim splits of the stacked
+    expert weights ``wi`` and ``wo`` (None: replicated)."""
     cfg = smoke(get_config(arch))
     model = build_model(cfg, torch.float32)
     params = model.init(0, "cpu")
-    sh = _sharder(cfg, mesh, B, S, "prefill")
+    sh = _sharder(cfg, mesh, B, S, "prefill", rules_override)
     dparams = sh.distribute(params, sh.param_shardings(model.param_specs()[1]))
     batch = _batch(cfg, B, S, 1)
     tok = torch.randint(0, cfg.vocab_size, (B, 1),
@@ -106,9 +113,13 @@ def _serve(arch, mesh):
         want_d, _ = model.decode(params, {"tokens": tok}, cache, S)
         got_d, _ = model.decode(dparams, {"tokens": tok}, dcache, S,
                                 sharder=sh)
+    ffn = dparams["layers"]["ffn"] if rules_override else {}
     return {"prefill": _rel(got, want), "decode": _rel(got_d, want_d),
             "dtensor": type(got).__name__,
-            "placements": [str(p) for p in got.placements]}
+            "placements": [str(p) for p in got.placements],
+            "experts": {n: [p.dim if p.is_shard() else None
+                            for p in ffn[n].placements]
+                        for n in ("wi", "wo") if n in ffn}}
 
 
 def _serve_q_seq(arch, mesh):
@@ -447,7 +458,8 @@ def _ops(mesh):
     version.  Per layout: the output's placements, the local shapes the
     op saw (the rank's shards, or the whole tensors where the strategy
     replicates), and the full result against the plain version."""
-    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor import (Partial, Replicate, Shard,
+                                          distribute_tensor)
     from repro_torch.kernels.flash_attention import ops as fo
     from repro_torch.kernels.moe_mlp import ops as mo
     from repro_torch.kernels.quantize import ops as qo
@@ -492,6 +504,10 @@ def _ops(mesh):
                        [(s0, r)] + [(r, r)] * 3, [(s0, r)]),
         "moe experts": (mo.OP, (x, wi, wg, wo_),
                         [(s0, s1)] + [(r, s0)] * 3, [(s0, s1)]),
+        # each rank's slice of d_ff: a partial sum over "model"
+        "moe d_ff": (mo.OP, (x, wi, wg, wo_),
+                     [(s0, r), (r, s2), (r, s2), (r, s1)],
+                     [(s0, Partial())]),
         # context parallelism: q's rows split over "model", every key on
         # each rank; each rank's call gets its rows' offset
         "flash q_seq": (rows_op, (q, k, v, True, 0, 0),
@@ -535,7 +551,8 @@ def _ops(mesh):
                 "local_shapes": seen[-1] == local,
                 "sharded": local != [tuple(t.shape) for t in tensors],
                 "equal": [bool(torch.equal(o.full_tensor(), w))
-                          for o, w in zip(got, want)]}
+                          for o, w in zip(got, want)],
+                "rel": [_rel(o, w) for o, w in zip(got, want)]}
     return out
 
 
@@ -551,6 +568,8 @@ def _worker(rank, store, out):
         t0 = time.perf_counter()
         for arch in ARCHS:
             _case(results, f"serve/{arch}", _serve, arch, mesh)
+        _case(results, f"serve_d_ff/{D_FF_ARCH}", _serve, D_FF_ARCH, mesh,
+              D_FF_RULES)
         for arch in Q_SEQ_ARCHS:
             _case(results, f"q_seq/{arch}", _serve_q_seq, arch, mesh)
         for arch in KV_SEQ_ARCHS:

@@ -774,16 +774,23 @@ def test_flash_attention_on_dtensors(card, mesh11, layout):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("layout", ["groups", "experts"])
+@pytest.mark.parametrize("layout", ["groups", "experts", "d_ff"])
 def test_moe_mlp_on_dtensors(card, mesh11, layout):
-    from torch.distributed.tensor import Replicate, Shard
+    """The op's layouts on the (1, 1) mesh: split over groups, over
+    experts, or over d_ff (wi and wg on F, wo on F; the output a partial
+    sum, of one rank here)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
     r = (Replicate(), Replicate())
-    x_pl, w_pl = {"groups": ((Shard(0), Replicate()), r),
-                  "experts": ((Replicate(), Shard(1)),
-                              (Replicate(), Shard(0)))}[layout]
+    x_pl, wi_pl, wo_pl, out_pl = {
+        "groups": ((Shard(0), Replicate()), r, r, (Shard(0), Replicate())),
+        "experts": ((Replicate(), Shard(1)), (Replicate(), Shard(0)),
+                    (Replicate(), Shard(0)), (Replicate(), Shard(1))),
+        "d_ff": (r, (Replicate(), Shard(2)), (Replicate(), Shard(1)),
+                 (Replicate(), Partial()))}[layout]
     args = _moe_inputs(card, 2, 4, 40, 256, 512, torch.bfloat16)
     _dtensor_case(moe_ops.expert_mlp, moe_ops.expert_mlp, args,
-                  _on_mesh(mesh11, [x_pl] + [w_pl] * 3, *args), [x_pl])
+                  _on_mesh(mesh11, [x_pl, wi_pl, wi_pl, wo_pl], *args),
+                  [out_pl])
 
 
 @pytest.mark.gpu

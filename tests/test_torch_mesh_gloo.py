@@ -8,6 +8,10 @@ never share a rendezvous).  f32 compute at smoke size.
   decode step with the sharder; the ``full_tensor()`` logits match the
   unsharded port within 1e-5 of the largest logit (f32: DTensor sums
   partial products in other orders; seen ~1e-6).
+* smoke mixtral-8x22b with its experts whole, so that "model" splits the
+  expert weights' d_ff: a prefill and one decode step within 1e-5 of the
+  unsharded port; the expert-MLP op's d_ff layout (a partial sum over
+  "model") on the op's own, within 1e-5 of the plain version.
 * smoke deepseek-67b and qwen2-vl-7b (1 kv head) under the decode rules:
   the cache split along its slots, a prefill and 8 decode steps within
   1e-5 of the unsharded port.
@@ -124,6 +128,34 @@ def test_sharded_prefill_and_decode_match_unsharded(run, arch):
     assert r["dtensor"] == "DTensor"
     assert r["prefill"] <= gw.LOGIT_TOL, r
     assert r["decode"] <= gw.LOGIT_TOL, r
+
+
+def test_d_ff_split_experts_match_unsharded(run):
+    """smoke mixtral with its experts whole (``gw.D_FF_RULES``): "model"
+    splits the stacked expert weights along d_ff, ``wi`` (L, E, D, F) on
+    dim 3 and ``wo`` (L, E, F, D) on dim 2, and the prefill and a decode
+    step are within 1e-5 of the largest logit of the unsharded port.  On
+    the CPU the expert FFN is the plain version on DTensors (DTensor's
+    own einsum layouts: a partial sum reduced at the model's "moe_d"
+    constraint); the op's d_ff layout is ``test_moe_d_ff_layout_sums_
+    each_ranks_slice``'s."""
+    r = _ok(run[0], f"serve_d_ff/{gw.D_FF_ARCH}")
+    assert r["experts"] == {"wi": [None, 3], "wo": [None, 2]}, r
+    assert r["prefill"] <= gw.LOGIT_TOL, r
+    assert r["decode"] <= gw.LOGIT_TOL, r
+
+
+def test_moe_d_ff_layout_sums_each_ranks_slice(run):
+    """The expert-MLP op on x split over groups ("data") and the weights
+    split along d_ff over "model": the op runs on each rank's blocks and
+    its half of d_ff, and its output is a partial sum over "model"; the
+    sum equals the plain version on the whole tensors within 1e-5 of the
+    largest value (two f32 halves of the down projection's sum, added in
+    another order)."""
+    r = _ok(run[0], "ops")["moe d_ff"]
+    assert r["placements"] == [True] and r["local_shapes"], r
+    assert r["sharded"], r
+    assert r["rel"][0] <= 1e-5, r
 
 
 @pytest.mark.parametrize("arch", gw.Q_SEQ_ARCHS)
@@ -275,6 +307,7 @@ def test_kernel_op_strategy_runs_on_local_shards(run, case):
     the plain version's on the whole tensors (the local computations are
     independent: the same values, bit for bit)."""
     r = _ok(run[0], "ops")[case]
+    r = {k: v for k, v in r.items() if k != "rel"}
     assert r == {"placements": [True] * len(r["placements"]),
                  "local_shapes": True, "sharded": True,
                  "equal": [True] * len(r["equal"])}, r
