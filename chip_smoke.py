@@ -190,14 +190,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
                each dry-run and then run for real on DTensors of its specs
                (params drawn from the seed): the dry run's kernel ops equal
                the launches and its argument bytes the real arguments',
-               exactly; its predicted peak over max_memory_allocated
-               (against the bound written in PERF.md) and its roofline
+               exactly; its predicted peak beside max_memory_allocated,
+               their ratio within DRYRUN_PEAK_BOUND, and its roofline
                bound over the CUDA-event ms, printed; then the train loss
                on stablelm-1.6b's logits for 4 x 4096 tokens split over
                the mesh's "model" dim (its vocab-split path), forward and
                backward: dry-run, then run, its loss and gradient equal to
                the plain tensors' bit for bit, its predicted peak over
-               max_memory_allocated and its ms printed; (b) production
+               max_memory_allocated (within DRYRUN_PEAK_BOUND) and its ms
+               printed; (b) production
                cells under PyTorch's fake process group on fake CUDA
                tensors, on the (16, 16) mesh (stablelm-1.6b and
                minicpm-2b train_4k, olmoe-1b-7b prefill_32k, deepseek-67b
@@ -3231,6 +3232,7 @@ def _dryrun_native(torch, counters, dr, arch: str, name: str, batch: int,
     check(arg_bytes == mem["argument_bytes"],
           f"{arch} {name}: real arguments {arg_bytes} bytes, the dry run's "
           f"{mem['argument_bytes']}")
+    _check_peak(f"{arch} {name}", predicted, peak)
     res = {"reduced": f"global batch {dr.SHAPES[name].global_batch} -> "
                       f"{batch}, the (1, 1) mesh",
            "kernel_ops": rep.detail["kernels"], "launches": launched,
@@ -3250,6 +3252,16 @@ def _dryrun_native(torch, counters, dr, arch: str, name: str, batch: int,
           f"{res['bound_over_measured']:.4f} [{card}]")
     del args, params, batch_t
     return launched, res
+
+
+def _check_peak(what: str, predicted: float, peak: float) -> None:
+    """The dry run's predicted peak over ``max_memory_allocated`` within
+    ``DRYRUN_PEAK_BOUND``."""
+    lo, hi = DRYRUN_PEAK_BOUND
+    check(lo <= predicted / peak <= hi,
+          f"{what}: predicted peak {predicted / 2**30:.2f} GiB over "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB is outside "
+          f"{DRYRUN_PEAK_BOUND}")
 
 
 def _dryrun_loss(torch, dr, mesh, seed: int, card: str) -> dict:
@@ -3297,6 +3309,7 @@ def _dryrun_loss(torch, dr, mesh, seed: int, card: str) -> dict:
           f"{arch} loss on the vocab-split (1, 1) mesh: {float(loss)} "
           f"against the plain tensors' {float(want)}, gradients equal "
           f"{torch.equal(grad, want_g)}")
+    _check_peak(f"{arch} loss", predicted, peak)
     res = {"logits": [b, s, vp], "placements": "(Replicate(), Shard(2))",
            "loss": float(loss), "predicted_peak_bytes": predicted,
            "measured_peak_bytes": float(peak), "peak_ratio": predicted / peak,

@@ -186,6 +186,12 @@ def op_cost(func, args, kwargs, out) -> Tuple[float, float]:
         values = args[_INDEX_WRITES[packet]]
         nbytes = 2.0 * _nbytes(values if isinstance(values, torch.Tensor)
                                else args[2])
+    elif packet is aten.copy_:
+        # reads its source and writes its destination, whose old values
+        # are not read: a prefill's write of a layer's entry into the
+        # stacked cache moves what hlo_cost counts for a scan's
+        # dynamic-update-slice, twice the entry
+        nbytes = _nbytes(args[1]) + out_bytes
     else:
         nbytes = sum(_nbytes(t) for t in ins) + out_bytes
     out_elems = float(sum(t.numel() for t in outs))

@@ -40,7 +40,8 @@ from repro_torch.models import layers as ll
 from repro_torch.models.common import (IDENTITY_SHARDER, Sharder,
                                        TensorSpec, cast, param, stack_inits,
                                        zeros)
-from repro_torch.models.transformer import (MODES, _layer_views, _unstack,
+from repro_torch.models.transformer import (MODES, _layer_views,
+                                            _stack_layer, _unstack,
                                             kv_capacity)
 
 
@@ -197,16 +198,17 @@ def dec_forward(params: Dict, x: torch.Tensor, enc_out, cfg, positions,
                 ) -> Tuple[torch.Tensor, Any]:
     """The decoder stack -> (x, cache).  The cache is ``{"self": {k, v},
     "cross": {k, v}}``, each leaf stacked over the layers: None in train
-    mode, new in prefill, ``cache`` itself (written in place) in
-    decode."""
+    mode, new in prefill (each layer's entry written into it as the
+    layer returns it, ``_stack_layer``), ``cache`` itself (written in
+    place) in decode."""
     seq_capacity = seq_capacity or x.shape[1]
     n = cfg.n_layers
     layers = _unstack(params["dec_layers"], n)
     if mode == "decode":
         cache = sharder.layer_stacks(cache)
     caches = _layer_views(cache, n) if mode == "decode" else [None] * n
-    new = []
-    for lp, lc in zip(layers, caches):
+    stacked = None
+    for i, (lp, lc) in enumerate(zip(layers, caches)):
         if mode == "train":
             x, _ = checkpoint(_dec_layer, lp, x, enc_out, cfg, positions,
                               mode, None, None, chunk, seq_capacity, sharder,
@@ -214,13 +216,14 @@ def dec_forward(params: Dict, x: torch.Tensor, enc_out, cfg, positions,
         else:
             x, nc = _dec_layer(lp, x, enc_out, cfg, positions, mode, lc,
                                cur_len, chunk, seq_capacity, sharder)
-            new.append(nc)
+            if mode == "prefill":
+                stacked = _stack_layer(stacked, i, n, nc)
+            del nc
     if mode == "train":
         return x, None
     if mode == "decode":
         return x, cache
-    return x, {part: {leaf: torch.stack([c[part][leaf] for c in new])
-                      for leaf in ("k", "v")} for part in ("self", "cross")}
+    return x, stacked
 
 
 # ---------------------------------------------------------------------------

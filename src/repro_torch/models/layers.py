@@ -21,7 +21,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch.distributed import _functional_collectives as funcol
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
@@ -181,7 +181,13 @@ def per_shard(fn, roles, out_roles, *args):
     leaves whole an argument with no such dim.  DTensor cannot merge two
     dims split over two mesh dims (torch 2.11 refuses the batched
     matmuls' merge of batch and heads), which running on the local
-    shards never asks of it."""
+    shards never asks of it.
+
+    Under autograd an argument left whole over a mesh dim that splits
+    the first argument gets, from each rank, the gradient of that rank's
+    share alone: its gradient is a partial sum over that mesh dim
+    (``Partial``), as a weight's is where the rows are split, and keys
+    and values where the query rows are."""
     lead = args[0]
     if not isinstance(lead, DTensor):
         return fn(*args)
@@ -189,9 +195,10 @@ def per_shard(fn, roles, out_roles, *args):
     split = [roles[0][p.dim] if p.is_shard() else None
              for p in lead.placements]
 
-    def layout(r):
+    def layout(r, whole=Replicate()):
         return tuple(Shard(r.index(x)) if x is not None and x in r
-                     else Replicate() for x in split)
+                     else Replicate() if x is None else whole
+                     for x in split)
     reps = [Replicate()] * mesh.ndim
     args = [DTensor.from_local(a, mesh, reps, run_check=False)
             if r is not None and not isinstance(a, DTensor) else a
@@ -199,6 +206,9 @@ def per_shard(fn, roles, out_roles, *args):
     return local_map(fn, out_placements=list(layout(out_roles)),
                      in_placements=tuple(layout(r) if r is not None
                                          else None for r in roles),
+                     in_grad_placements=tuple(
+                         layout(r, Partial()) if r is not None else None
+                         for r in roles),
                      device_mesh=mesh, redistribute_inputs=True)(*args)
 
 
@@ -317,38 +327,47 @@ def attention_train(p: Dict, x: torch.Tensor, cfg, positions: torch.Tensor,
     v by the query heads after it (on the kernel path, which takes them
     unrepeated, by the query heads as they are), and the attention output
     by "seq" before the output projection.  The returned k and v are the
-    ones before any constraint, as JAX's ``kv_raw``.
+    ones laid out by their kv heads (JAX's ``kv_raw`` is taken before
+    that constraint; the values are the same).
 
-    On the kernel path of a mesh whose rules split "q_seq" (context
-    parallelism), x's rows are laid out by it before the q projection,
-    so that the projection, the qk norm and RoPE run on each rank's rows
-    (where XLA's propagation of q's layout puts them), and the kernel
-    runs on those rows with every key (``flash_attention_rows``).  The
-    projection runs on the local shards (``per_shard``): DTensor (torch
-    2.11) refuses the einsum's view that merges the batch and row dims
-    split over two mesh dims.
+    On a mesh whose rules split "q_seq" (context parallelism), in
+    either mode, x's rows are laid out by it before the projections, so
+    that the q, k and v projections, the qk norm and RoPE run on each
+    rank's rows (where XLA's propagation of q's layout puts them); k and
+    v are then gathered over the rows (every query row sees every key),
+    and the kernel, or the plain branch, runs on the rank's query rows
+    with every key (``flash_attention_rows``).  The projections run on
+    the local shards (``per_shard``): DTensor (torch 2.11) refuses the
+    einsum's view that merges the batch and row dims split over two mesh
+    dims.  Under autograd their backward runs on the rank's rows too,
+    the weights' gradients partial sums over the rows' ranks.  The
+    returned k and v are then the gathered ones.
     """
     if mode not in ("train", "prefill"):
         raise ValueError(f"attention_train has no mode {mode!r}")
     plain = mode == "train" or x.device.type in PLAIN_DEVICES
-    if not plain and sharder.axis_size("q_seq") > 1:
-        q = per_shard(_project, _PROJECT_ROLES, ("b", "s", "h", None),
-                      sharder.ac(x, ("batch", "q_seq", None)), p["wq"])
+    if sharder.axis_size("q_seq") > 1:
+        xr = sharder.ac(x, ("batch", "q_seq", None))
+
+        def project(w):
+            return per_shard(_project, _PROJECT_ROLES, ("b", "s", "h", None),
+                             xr, w)
     else:
-        q = _project(x, p["wq"])
+        project = functools.partial(_project, x)
+    q = project(p["wq"])
     if cfg.qk_norm:
         q = _qk_norm(q, p["q_norm"], cfg.norm_eps)
     q = apply_rope(cfg, q, positions)
     q_pos = positions if positions.dim() == 2 else positions[..., 0]
     if kv is None:
-        k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-        v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+        k = project(p["wk"])
+        v = project(p["wv"])
         if cfg.qk_norm:
             k = _qk_norm(k, p["k_norm"], cfg.norm_eps)
         k = apply_rope(cfg, k, positions)
-        kv_raw = (k, v)
         k = sharder.ac(k, ("batch", None, "kv_heads", None))
         v = sharder.ac(v, ("batch", None, "kv_heads", None))
+        kv_raw = (k, v)
         kv_pos = q_pos
     else:
         k, v, kv_pos = kv
@@ -506,8 +525,10 @@ def apply_mlp(p: Dict, x: torch.Tensor, cfg,
               sharder: Sharder = IDENTITY_SHARDER) -> torch.Tensor:
     h = torch.einsum("bsd,df->bsf", x, p["wi"])
     if cfg.act == "swiglu":
-        g = torch.einsum("bsd,df->bsf", x, p["wg"])
-        h = _silu(h) * g
+        # the gate is projected after the activation's intermediates are
+        # freed: one (b, s, d_ff) tensor fewer at the layer's peak
+        h = _silu(h)
+        h = h * torch.einsum("bsd,df->bsf", x, p["wg"])
     elif cfg.act == "sq_relu":
         h = torch.square(F.relu(h))
     else:
@@ -574,11 +595,39 @@ def embed_tokens(p: Dict, tokens: torch.Tensor, cfg,
 
 def unembed(p: Dict, x: torch.Tensor, cfg,
             sharder: Sharder = IDENTITY_SHARDER) -> torch.Tensor:
-    if cfg.tie_embeddings:
-        logits = torch.einsum("bsd,vd->bsv", x, p["table"])
+    """Logits (b, s, Vp), laid out by ("batch", None, "vocab") as in JAX.
+
+    Where the rules split the rows ("q_seq") and not the vocab, the
+    logits would be whole on every rank of the rows' mesh dim, and so
+    would the loss and its backward: there x and the logits are laid
+    out by the rows instead, so that each rank projects, and
+    differentiates, its own rows (a train step's; serving's one row
+    stays whole), as XLA splits the unembedding's backward over the
+    rows in JAX's dry run."""
+    rows = ("q_seq" if sharder.axis_size("q_seq") > 1
+            and sharder.axis_size("vocab") == 1 else None)
+    tied = cfg.tie_embeddings
+    w = p["table"] if tied else p["head"]
+    if rows:
+        # on the local shards, as ``_project``: DTensor (torch 2.11)
+        # refuses the einsum's view merging the split batch and rows
+        logits = per_shard(functools.partial(_logits, tied=tied),
+                           _LOGITS_ROLES, ("b", "s", None),
+                           sharder.ac(x, ("batch", rows, None)), w)
     else:
-        logits = torch.einsum("bsd,dv->bsv", x, p["head"])
-    return sharder.ac(logits, ("batch", None, "vocab"))
+        logits = _logits(x, w, tied)
+    return sharder.ac(logits, ("batch", rows, "vocab"))
+
+
+def _logits(x: torch.Tensor, w: torch.Tensor, tied: bool) -> torch.Tensor:
+    """x (b, s, d) by the table (V, d) when ``tied``, else by the head
+    (d, V) -> (b, s, V)."""
+    return torch.einsum("bsd,vd->bsv" if tied else "bsd,dv->bsv", x, w)
+
+
+# the roles of ``_logits``' arguments for ``per_shard``: x by its batch
+# and rows, the weight whole
+_LOGITS_ROLES = (("b", "s", None), (None, None))
 
 
 class _TokenNLL(torch.autograd.Function):

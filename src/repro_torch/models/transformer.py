@@ -227,10 +227,14 @@ def apply_layer(p: Dict, x: torch.Tensor, cfg, layer_idx: int, positions,
             n_vis=n_vis, sharder=sharder)
         new_cache = ll.kv_to_cache(k_raw, v_raw,
                                    kv_capacity(cfg, seq_capacity), sharder)
+        del k_raw, v_raw
     else:
         mix = ll.attention_train(p["mixer"], h, cfg, positions, chunk=chunk,
                                  mode="train", n_vis=n_vis, sharder=sharder)
     x = sharder.ac(x + rs * mix, ("batch", "seq", None))
+    # the mixer's input and output (and its k and v) are not kept
+    # through the FFN
+    del h, mix
     h2 = ll.apply_norm(p["norm2"], x, cfg)
     aux = None
     if cfg.is_moe_layer(layer_idx):
@@ -341,6 +345,42 @@ def _layer_views(tree: Dict, n: int) -> List[Dict]:
     return [{k: v[i] for k, v in split.items()} for i in range(n)]
 
 
+def _stack_layer(stacked: Any, i: int, n: int, entry: Any) -> Any:
+    """Write layer ``i``'s cache entry (a dict tree) into entry ``i`` of
+    the cache stacked over ``n`` layers, allocating the stacked leaves
+    at the first entry written (``None`` before): each layer's entry is
+    written as the layer returns it, as JAX's scan writes its stacked
+    output, so that a prefill never holds its cache twice (all layers'
+    entries and their ``torch.stack``).  The stacked leaves equal the
+    stack bit for bit.  A DTensor leaf is laid out as the stack of its
+    entries is, each entry's split one dim further in, and written on
+    the local shards (DTensor refuses in-place writes into a split
+    tensor, as ``MeshSharder.write_kv_`` notes)."""
+    if isinstance(entry, dict):
+        stacked = stacked or {}
+        return {k: _stack_layer(stacked.get(k), i, n, v)
+                for k, v in entry.items()}
+    if not isinstance(entry, DTensor):
+        if stacked is None:
+            stacked = entry.new_empty((n,) + tuple(entry.shape))
+        stacked.select(0, i).copy_(entry)
+        return stacked
+    if stacked is None:
+        local = entry.to_local()
+        shape = (n,) + tuple(entry.shape)
+        stacked = DTensor.from_local(
+            local.new_empty((n,) + tuple(local.shape)), entry.device_mesh,
+            [Shard(p.dim + 1) if p.is_shard() else p
+             for p in entry.placements],
+            run_check=False, shape=shape, stride=contiguous_strides(shape))
+    layer = tuple(Shard(p.dim - 1) if p.is_shard() else p
+                  for p in stacked.placements)
+    if tuple(entry.placements) != layer:
+        entry = entry.redistribute(stacked.device_mesh, layer)
+    stacked.to_local().select(0, i).copy_(entry.to_local())
+    return stacked
+
+
 def decoder_forward(layers_params, x: torch.Tensor, cfg, positions,
                     mode: str, cache=None, cur_len=None, chunk: int = 2048,
                     seq_capacity: int = 0, n_vis: int = 0,
@@ -348,10 +388,12 @@ def decoder_forward(layers_params, x: torch.Tensor, cfg, positions,
                     ) -> Tuple[torch.Tensor, Any, torch.Tensor]:
     """Run the decoder stack -> (x, cache, aux_loss summed over layers).
     Train returns no cache; prefill returns a new stacked cache in the
-    compute dtype (the RWKV and ssm states in f32); decode writes into
-    ``cache`` in place and returns it.  A hybrid arch's params and cache
-    are tuples over the positions of its period; the loop runs period by
-    period, position by position, as the JAX scan over periods does."""
+    compute dtype (the RWKV and ssm states in f32), each layer's entry
+    written into it as the layer returns it (``_stack_layer``); decode
+    writes into ``cache`` in place and returns it.  A hybrid arch's
+    params and cache are tuples over the positions of its period; the
+    loop runs period by period, position by position, as the JAX scan
+    over periods does."""
     seq_capacity = seq_capacity or x.shape[1]
     hybrid = cfg.family == "hybrid"
     n_pos = period(cfg)
@@ -364,7 +406,7 @@ def decoder_forward(layers_params, x: torch.Tensor, cfg, positions,
                                                      else (cache,))]
     else:
         caches = [[None] * n_steps] * n_pos
-    new: List[List[Optional[Dict]]] = [[] for _ in range(n_pos)]
+    stacked: List[Optional[Dict]] = [None] * n_pos
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(n_steps):
         for pos in range(n_pos):
@@ -380,14 +422,14 @@ def decoder_forward(layers_params, x: torch.Tensor, cfg, positions,
                                        sharder)
             if a is not None:
                 aux = aux + a
-            new[pos].append(nc)
+            if mode == "prefill":
+                stacked[pos] = _stack_layer(stacked[pos], i, n_steps, nc)
+            del nc                      # copied: not kept into the next layer
     if mode == "train":
         return x, None, aux
     if mode == "decode":
         return x, cache, aux
-    stacked = tuple({n: torch.stack([c[n] for c in cs]) for n in cs[0]}
-                    for cs in new)
-    return x, stacked if hybrid else stacked[0], aux
+    return x, tuple(stacked) if hybrid else stacked[0], aux
 
 
 # ---------------------------------------------------------------------------
