@@ -202,14 +202,20 @@ Phases, each of which raises on failure (the script then exits non-zero):
                cells under PyTorch's fake process group on fake CUDA
                tensors, on the (16, 16) mesh (stablelm-1.6b and
                minicpm-2b train_4k, olmoe-1b-7b prefill_32k, deepseek-67b
-               prefill_32k and decode_32k, qwen2-vl-7b, minicpm-2b and
+               prefill_32k and decode_32k, olmoe-1b-7b decode_32k: its
+               cache's layers split over "data", moved a layer at a time,
+               qwen2-vl-7b, minicpm-2b and
                whisper-small prefill_32k, jamba-v0.1-52b long_500k,
                mixtral-8x22b decode_32k: its experts' d_ff split) and the
                (2, 16, 16) one (olmoe-1b-7b prefill_32k): each ok, one JSON
                line each (per-device GB, fits_hbm, the dominant roofline
                term and bound, useful flops, collective bytes by kind,
-               kernel ops, host seconds, the largest ops by bytes), each
-               costed as the last rank along "model"; no cell replicates
+               kernel ops, host seconds, the largest ops by bytes, the
+               count of its desim trace's ops), each
+               costed as the last rank along "model"; each cell's desim
+               trace (core.fidelity.step_trace) holds its collectives,
+               their count and bytes by kind those of the dry run; a
+               decode cell returns its cache argument; no cell replicates
                a kernel or moves a stacked layer leaf whole, and no train
                cell whose rules split the vocab has an op of the whole
                vocab among its largest; where the rules split the heads,
@@ -399,6 +405,7 @@ DRYRUN_CELLS = [(False, [("stablelm-1.6b", "train_4k"),
                          ("olmoe-1b-7b", "prefill_32k"),
                          ("deepseek-67b", "prefill_32k"),
                          ("deepseek-67b", "decode_32k"),
+                         ("olmoe-1b-7b", "decode_32k"),
                          ("qwen2-vl-7b", "prefill_32k"),
                          ("minicpm-2b", "prefill_32k"),
                          ("whisper-small", "prefill_32k"),
@@ -3364,6 +3371,14 @@ def _dryrun_production(torch, dr, arch: str, name: str, multi: bool,
     check(res["whole_stacked_moves"] == [],
           f"dry run {arch} {name}: stacked leaves moved whole "
           f"{res['whole_stacked_moves'][:4]}")
+    want = {k: {"count": c["count"], "bytes": c["bytes"]}
+            for k, c in res["collectives"].items()}
+    check(res["trace_collectives"] == want,
+          f"dry run {arch} {name}: the desim trace's collective ops "
+          f"{res['trace_collectives']}, the dry run's collectives {want}")
+    check(shape.kind != "decode" or res["memory"]["alias_bytes"] > 0,
+          f"dry run {arch} {name}: the decode step does not return its "
+          f"cache argument")
     if shape.kind == "train" and rules.size("vocab") > 1:
         from repro_torch.models.layers import padded_vocab
         whole = [n for _, n in res["top_bytes"]
@@ -3381,6 +3396,7 @@ def _dryrun_production(torch, dr, arch: str, name: str, multi: bool,
             "collective_bytes": {k: v["bytes"]
                                  for k, v in res["collectives"].items()},
             "kernels": res["kernels"], "trace_s": res["trace_s"],
+            "trace_ops": res["trace_ops"],
             "replicated_kernels": res["replicated_kernels"],
             "costed_coordinate": res["costed_coordinate"],
             "flash_flops": res["kernel_flops"].get("flash_attention"),

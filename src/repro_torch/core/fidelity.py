@@ -29,6 +29,7 @@ and returns the makespan, such as one built on the JAX-free
 from __future__ import annotations
 
 import contextlib
+import math
 import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Optional
@@ -189,8 +190,9 @@ class DryRunBackend(Backend):
     ``detail["unknown_ops"]`` the calls of ops that ``op_cost`` has no
     flops rule for (costed at 0 flops and their bytes);
     ``detail["collectives"]``, ``["copy_bytes"]``, ``["moves"]``,
-    ``["top_dots"]`` and ``["top_bytes"]`` are ``CostMode``'s, and
-    ``["replicated_kernels"]`` its ``replicated``.
+    ``["top_dots"]``, ``["top_bytes"]`` and ``["stream_collectives"]``
+    are ``CostMode``'s, and ``["replicated_kernels"]`` its
+    ``replicated``.
 
     The step may not read a value back to the host (``.item()``,
     ``int(tensor)``): a fake tensor has none.  The train and prefill
@@ -236,18 +238,54 @@ class DryRunBackend(Backend):
         rep.detail["top_dots"] = cost.top_dots
         rep.detail["top_bytes"] = cost.top_bytes
         rep.detail["moves"] = cost.moves
+        rep.detail["stream_collectives"] = cost.stream_collectives
         rep.detail["replicated_kernels"] = cost.replicated
         return rep
 
 
 def step_trace(name: str, report: StepReport) -> Dict[str, Any]:
-    """The elastic trace of a one-device step as plain data, in
-    ``repro.core.desim.trace.TraceOp``'s field names: one compute region
-    holding the step's flops and bytes, as ``HloTrace.from_hlo_text``
-    makes of a module with no collective."""
-    return {"name": name, "ops": [{
-        "kind": "compute", "flops": report.flops or 0.0,
-        "bytes": report.bytes_accessed or 0.0, "name": "region0"}]}
+    """The elastic trace of a step as plain data, in
+    ``repro.core.desim.trace.TraceOp``'s field names, as
+    ``HloTrace.from_hlo_text`` builds it: the op stream cut at each
+    collective (``detail["stream_collectives"]``) into compute regions
+    (``region0``, ``region1``, ...), each collective an op between them
+    with its kind, ``coll_bytes`` (its operand bytes per device, as JAX
+    passes an instruction's operand bytes) and ``participants`` (its
+    group's size, as JAX passes ``replica_groups``), every op after the
+    first depending on the one before.  ``overlap`` is False and
+    ``scope`` "ici", as JAX's trace of a module compiled for host
+    devices sets them (no ``-start`` collective there).
+
+    A region's flops and bytes are the exact sums of its ops' (a
+    collective's own bytes, its read and write of memory, in the region
+    it ends), where JAX apportions the module's totals to its regions
+    by their output bytes: XLA's cost analysis has no count per region.
+    A step with no collective (one device) is one region holding the
+    report's flops and bytes."""
+    cuts = report.detail.get("stream_collectives") or []
+    if not cuts:
+        return {"name": name, "ops": [{
+            "kind": "compute", "flops": report.flops or 0.0,
+            "bytes": report.bytes_accessed or 0.0, "name": "region0"}]}
+    stream = report.detail["ops"]
+    ops: list = []
+    start = 0
+    for r, (at, kind, nbytes, n) in enumerate(cuts + [(len(stream),) + (
+            None,) * 3]):
+        region = {"kind": "compute",
+                  "flops": math.fsum(f for _, f, _ in stream[start:at]),
+                  "bytes": math.fsum(b for _, _, b in stream[start:at]),
+                  "name": f"region{r}"}
+        if ops:
+            region["deps"] = (len(ops) - 1,)
+        ops.append(region)
+        if kind is not None:
+            ops.append({"kind": kind, "coll_bytes": nbytes,
+                        "participants": n, "deps": (len(ops) - 1,),
+                        "overlap": False, "scope": "ici",
+                        "name": f"{kind}.{r}"})
+        start = at
+    return {"name": name, "ops": ops}
 
 
 class DesimBackend(Backend):
@@ -274,7 +312,7 @@ class DesimBackend(Backend):
             raise ValueError(
                 "DesimBackend needs replay=: a callable that takes the "
                 "trace dict {'name', 'ops': [{'kind', 'flops', 'bytes', "
-                "'name'}]} and returns the makespan in seconds, e.g. one "
+                "'name', ...}]} and returns the makespan in seconds, e.g. one "
                 "that builds repro.core.desim.trace.HloTrace from "
                 "TraceOp(**op) and runs repro.sim.Simulator on a board "
                 "(examples/quickstart_torch.py, sim_replay)")

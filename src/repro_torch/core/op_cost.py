@@ -253,15 +253,21 @@ class CostMode(TorchDispatchMode):
     dots by flops and ops by bytes, ``(value, "op [local shapes]")``;
     ``moves`` lists each collective and ``cat`` as ``(op, shapes)``, the
     shapes of its tensor operands and outputs (what a check for a
-    tensor moved or rebuilt whole reads).  ``replicated`` maps a kernel's
+    tensor moved or rebuilt whole reads).  ``stream_collectives`` places
+    each collective in the stream, ``(at, kind, bytes, group size)``:
+    ``ops[:at]`` are the ops dispatched up to it, its own entry the last
+    of them, and ``bytes`` its operand bytes per device, what
+    ``collectives[kind]["bytes"]`` sums (``core.fidelity.step_trace``
+    cuts the stream there).  ``replicated`` maps a kernel's
     name to ``{"calls": n, "gathered": {argument: [mesh dims]}}`` for its
     calls on DTensors that gathered some argument over a mesh dim (of
     more than one rank) that split it (``_observe_redistribution``).
 
     ``peak_bytes`` is the peak of the storage the step's ops created and
     that was alive at once (each storage once, its views and in-place
-    writes free; weak references see it freed), the storage of the
-    ``arguments`` given to ``track_arguments`` not counted."""
+    writes free, a collective's ``wait_tensor`` its argument, as the
+    real op returns it; weak references see it freed), the storage of
+    the ``arguments`` given to ``track_arguments`` not counted."""
 
     TOP_DOTS, TOP_BYTES = 5, 8
 
@@ -275,6 +281,7 @@ class CostMode(TorchDispatchMode):
         self.top_dots: List[Tuple[float, str]] = []
         self.top_bytes: List[Tuple[float, str]] = []
         self.moves: List[Tuple[str, List[Tuple[int, ...]]]] = []
+        self.stream_collectives: List[Tuple[int, str, float, int]] = []
         self.replicated: Dict[str, Dict] = {}
         self.live_bytes = 0.0
         self.peak_bytes = 0.0
@@ -429,8 +436,15 @@ class CostMode(TorchDispatchMode):
                 t.device.type == "meta" for t in _tensors((args, kwargs))):
             return func(*args, **kwargs)
         out = func(*args, **kwargs)
+        if func.overloadpacket.__name__ == "wait_tensor" \
+                and func.namespace in COLLECTIVE_NAMESPACES:
+            # a collective's result is its wait's: the real op returns its
+            # argument, a fake one a new tensor, whose storage would count
+            # the result twice at the peak
+            return args[0]
         self._track(out)
         flops, nbytes = op_cost(func, args, kwargs, out)
+        collective = None
         if func.namespace == "repro_torch":
             self.kernels[func.overloadpacket.__name__] += 1
         elif func.namespace in COLLECTIVE_NAMESPACES:
@@ -438,12 +452,14 @@ class CostMode(TorchDispatchMode):
             if kind is not None:
                 c = self.collectives.setdefault(
                     kind, {"count": 0, "bytes": 0.0, "group_sizes": []})
-                c["count"] += 1
-                c["bytes"] += sum(_nbytes(t) for t in _tensors(args[:1]))
+                operand = sum(_nbytes(t) for t in _tensors(args[:1]))
                 n = group_size(func, args, kwargs)
+                c["count"] += 1
+                c["bytes"] += operand
                 if n not in c["group_sizes"]:
                     c["group_sizes"] = sorted(c["group_sizes"] + [n])
                 self._move(func, args, out)
+                collective = (kind, operand, n)
         elif _tensors(out) and not known(func):
             self.unknown[str(func)] += 1
         if func.overloadpacket in _COPIES:
@@ -455,6 +471,8 @@ class CostMode(TorchDispatchMode):
             if func.overloadpacket in _DOTS:
                 _keep_top(self.top_dots, flops, func, args, self.TOP_DOTS)
             _keep_top(self.top_bytes, nbytes, func, args, self.TOP_BYTES)
+        if collective is not None:
+            self.stream_collectives.append((len(self.ops),) + collective)
         return out
 
     def _move(self, func, args, out) -> None:

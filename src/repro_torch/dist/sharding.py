@@ -40,12 +40,14 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, Iterator, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed._functional_collectives as funcol
 from torch.distributed.tensor import (DTensor, Placement, Replicate, Shard,
                                       distribute_tensor)
 from torch.distributed.tensor.experimental import implicit_replication
+from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
-from repro_torch.models.common import (Sharder, contiguous_strides, leaves,
+from repro_torch.models.common import (Sharder, contiguous_strides,
                                        local_shape_and_offset, map_leaves)
 
 # logical axis name -> tuple of mesh axis names (None = replicated)
@@ -227,6 +229,21 @@ class _LayOutCotangent(torch.autograd.Function):
         return g, None, None
 
 
+class _Home(NamedTuple):
+    """Where a slice that ``MeshSharder.decode_layer`` moved came from:
+    ``layer``, the layer's local slice of the stacked leaf on the rank
+    that holds it (None on the others); ``dims``, the mesh dims that
+    split the leaf's layers; ``split``, whether the moved slice splits
+    the batch over them (else it is the whole layer on each);
+    ``owner``, the holder's index along ``dims``; ``n``, the ranks along
+    them."""
+    layer: Optional[torch.Tensor]
+    dims: Tuple[int, ...]
+    split: bool
+    owner: int
+    n: int
+
+
 class MeshSharder(Sharder):
     """``Sharder`` that applies the rules on a ``DeviceMesh``.
 
@@ -244,6 +261,19 @@ class MeshSharder(Sharder):
         self.rules = rules
         self._placements: Dict[Tuple, Tuple[Placement, ...]] = {}
         self._depth = 0                 # scope() nesting
+        self._groups: Dict[Tuple[int, ...], Any] = {}
+        dp = tuple(i for i, a in enumerate(getattr(mesh, "mesh_dim_names",
+                                                   None) or ())
+                   if a in (rules.mapping.get("batch") or ())
+                   and mesh.size(i) > 1)
+        if len(dp) > 1:
+            # the group of the data-parallel ranks, which split a decode
+            # cache's layers (``decode_layer``), made here: flattening a
+            # mesh inside a step's fake-tensor mode fails (a mock mesh,
+            # which the rules' tests give, has no dim names)
+            self._group(dp)
+        # each slice ``decode_layer`` moved -> where its layer lives
+        self._homes = WeakIdKeyDictionary()
 
     # -- Sharder interface ------------------------------------------------
     def ac(self, x: torch.Tensor, axes: Tuple[Optional[str], ...]
@@ -304,32 +334,94 @@ class MeshSharder(Sharder):
         finally:
             self._depth -= 1
 
-    def layer_stacks(self, cache: Any) -> Any:
-        """A stacked cache whose leaves' layer dim is split (a decode
-        batch laid out by ``batch_shardings``, which splits every leaf's
-        leading dim, as the JAX dry run's does): each such leaf moves that
-        split to its batch dim, or drops it where the batch does not
-        divide, so that each layer's view lies on every rank, as the loop
-        over layers needs; the move is one all-to-all, not a gather of
-        the whole cache for each layer.  The decode step writes the moved
-        cache and returns it; a cache with no such leaf is ``cache``
-        itself, written in place."""
-        moved = map_leaves(self._layer_stack, cache)
-        if all(a is b for a, b in zip(leaves(moved), leaves(cache))):
-            return cache
+    def decode_layer(self, cache: Any, i: int) -> Any:
+        """Layer ``i``'s tree of a stacked decode cache.  A leaf whose
+        layer dim is split (a decode batch laid out by
+        ``batch_shardings``, which splits every leaf's leading dim, as
+        the JAX dry run's does) holds layer ``i`` on one rank of the
+        split: that rank sends each rank of it the layer's batch rows
+        that rank takes, one all-to-all of uneven splits (the whole
+        layer to each where the batch does not divide), so that a rank
+        holds the leaf plus one layer's rows, as XLA's scan over the
+        layers moves one layer at a time.  The moved slice is laid out
+        by batch over those mesh dims and as the leaf on the others;
+        ``write_kv_`` and ``write_state_`` write into the leaf, in place,
+        what the step writes into it.  Any other leaf gives its view
+        ``x[i]``."""
+        return map_leaves(lambda x: self._fetch_layer(x, i)
+                          if self._layer_dims(x) else x[i], cache)
+
+    def _layer_dims(self, x: torch.Tensor) -> Tuple[int, ...]:
+        """The mesh dims (of more than one rank) that split a DTensor's
+        leading dim."""
+        if not isinstance(x, DTensor):
+            return ()
+        return tuple(d for d, p in enumerate(x.placements)
+                     if p.is_shard(0) and self.mesh.size(d) > 1)
+
+    def _fetch_layer(self, x: DTensor, i: int) -> DTensor:
+        dims = self._layer_dims(x)
+        n = math.prod(self.mesh.size(d) for d in dims)
+        coord = self.mesh.get_coordinate()
+        me = 0
+        for d in dims:
+            me = me * self.mesh.size(d) + coord[d]
+        local = x.to_local()
+        owner, li = divmod(i, local.shape[0])
+        b = local.shape[1]
+        split = b % n == 0 and not any(p.is_shard(1) for p in x.placements)
+        rows = b // n if split else b
+        if me == owner:
+            src = local[li]
+            if not split:
+                src = src.expand((n,) + tuple(src.shape)).flatten(0, 1)
+            sends = [rows] * n
+        else:
+            src = local.new_empty((0,) + tuple(local.shape[2:]))
+            sends = [0] * n
+        got = funcol.wait_tensor(funcol.all_to_all_single(
+            src.contiguous(), [rows if j == owner else 0 for j in range(n)],
+            sends, self._group(dims)))
+        placements = tuple(
+            (Shard(0) if split else Replicate()) if d in dims
+            else Shard(p.dim - 1) if p.is_shard() else p
+            for d, p in enumerate(x.placements))
+        shape = tuple(x.shape[1:])
+        moved = DTensor.from_local(got, self.mesh, placements,
+                                   run_check=False, shape=shape,
+                                   stride=contiguous_strides(shape))
+        self._homes[moved] = _Home(local[li] if me == owner else None,
+                                   dims, split, owner, n)
         return moved
 
-    def _layer_stack(self, x: torch.Tensor) -> torch.Tensor:
-        if not isinstance(x, DTensor) or not any(p.is_shard(0)
-                                                 for p in x.placements):
-            return x
-        pl = tuple(x.placements)
-        n = math.prod(self.mesh.size(i) for i, p in enumerate(pl)
-                      if p.is_shard(0))
-        to = (Shard(1) if x.shape[1] % n == 0
-              and not any(p.is_shard(1) for p in pl) else Replicate())
-        return x.redistribute(self.mesh, tuple(to if p.is_shard(0) else p
-                                               for p in pl))
+    def _group(self, dims: Tuple[int, ...]):
+        """The process group of the ranks along ``dims`` (one mesh dim's,
+        or the flattened dims', in DTensor's order of their shards)."""
+        if len(dims) == 1:
+            return self.mesh.get_group(dims[0])
+        if dims not in self._groups:
+            names = tuple(self.mesh.mesh_dim_names[d] for d in dims)
+            self._groups[dims] = self.mesh[names]._flatten().get_group(0)
+        return self._groups[dims]
+
+    def _write_home(self, moved: DTensor, new: torch.Tensor,
+                    write) -> None:
+        """After a write into a slice ``decode_layer`` moved: ``new``, the
+        rank's local rows of what was written (laid out as ``moved``),
+        sent to the rank that holds the layer (one all-to-all, the
+        fetch's reverse; nothing to send where each rank holds the
+        whole layer), which runs ``write(layer, rows)`` into its local
+        slice of the leaf."""
+        home = self._homes[moved]
+        if home.split:
+            r = new.shape[0]
+            mine = home.layer is not None
+            new = funcol.wait_tensor(funcol.all_to_all_single(
+                new.contiguous(), [r if mine else 0] * home.n,
+                [r if j == home.owner else 0 for j in range(home.n)],
+                self._group(home.dims)))
+        if home.layer is not None:
+            write(home.layer, new)
 
     def write_kv_(self, ck: torch.Tensor, cv: torch.Tensor,
                   slot: torch.Tensor, k: torch.Tensor, v: torch.Tensor
@@ -371,6 +463,30 @@ class MeshSharder(Sharder):
                 idx = pos.clamp(0, n - 1)
                 new = torch.where(inside, new, local.gather(2, idx))
             local.scatter_(2, idx, new)
+            if t in self._homes:
+                # the layer's slots in the leaf: every row's, at its slot
+                whole = (slot.full_tensor() if isinstance(slot, DTensor)
+                         else slot)
+
+                def write(layer, rows, whole=whole):
+                    layer.scatter_(2, whole[:, None, None, None].expand(
+                        rows.shape), rows)
+                self._write_home(t, new, write)
+
+    def write_state_(self, state: torch.Tensor, new: torch.Tensor
+                     ) -> None:
+        """The new state written into ``state`` in place; into the
+        stacked leaf where ``decode_layer`` moved ``state`` out of it
+        (the moved slice itself, which the step drops, is not
+        written)."""
+        if not isinstance(state, DTensor) or state not in self._homes:
+            return super().write_state_(state, new)
+        if not isinstance(new, DTensor):
+            new = DTensor.from_local(new, self.mesh,
+                                     [Replicate()] * self.mesh.ndim,
+                                     run_check=False)
+        rows = new.redistribute(self.mesh, state.placements).to_local()
+        self._write_home(state, rows, lambda layer, r: layer.copy_(r))
 
     # -- shardings ---------------------------------------------------------
     def sharding(self, axes: Tuple[Optional[str], ...]) -> NamedSharding:

@@ -44,7 +44,10 @@ train options the cell ran with), ``device``, ``costed_rank`` and
 coordinate on the mesh), ``whole_stacked_moves`` (the collectives and
 ``cat`` ops of the stream with an operand or output at the global shape
 of a stacked layer leaf that the cell's layout splits: a gradient of
-such a leaf reduced or rebuilt whole; ``stacked_moves_of``), and
+such a leaf reduced or rebuilt whole; ``stacked_moves_of``),
+``trace_ops`` and ``trace_collectives`` (the count of the ops of the
+step's desim trace, ``core.fidelity.step_trace``, and its collective
+ops' count and bytes by kind, which equal ``collectives``), and
 ``replicated_kernels``: by kernel, the calls of the costed stream that
 ran with an argument gathered over a mesh dim that the cell's layout
 split it over (the kernel's strategy had no layout for that split, so
@@ -85,7 +88,8 @@ import torch.distributed as dist
 
 from repro_torch.configs import REGISTRY, SHAPES, get_config
 from repro_torch.configs.base import ArchConfig, ShapeConfig, cell_runnable
-from repro_torch.core.fidelity import DryRunBackend, StepProgram, StepReport
+from repro_torch.core.fidelity import (DryRunBackend, StepProgram,
+                                       StepReport, step_trace)
 from repro_torch.dist.sharding import MeshSharder, make_rules, mesh_axes
 from repro_torch.kernels.flash_attention.ops import cost as flash_cost
 from repro_torch.launch.mesh import (describe, make_production_mesh,
@@ -332,11 +336,24 @@ def dryrun_cell(arch: str, shape_name: str, multi_pod: bool = False,
         "replicated_kernels": rep.detail["replicated_kernels"],
         "whole_stacked_moves": stacked_moves_of(
             rep, split_stacked_shapes(arch, rules, mesh)),
+        **trace_summary(step_trace(prog.name, rep)),
         "costed_rank": dist.get_rank() if dist.is_initialized() else 0,
         "costed_coordinate": list(coord) if coord is not None else None,
         "options": {"accum_steps": opts.accum_steps,
                     "moment_dtype": opts.moment_dtype, "chunk": opts.chunk},
     }
+
+
+def trace_summary(trace: Dict[str, Any]) -> Dict[str, Any]:
+    """The count of a desim trace's ops (``trace_ops``) and its
+    collective ops' count and bytes by kind (``trace_collectives``)."""
+    kinds: Dict[str, Dict[str, float]] = {}
+    for op in trace["ops"]:
+        if op["kind"] != "compute":
+            k = kinds.setdefault(op["kind"], {"count": 0, "bytes": 0.0})
+            k["count"] += 1
+            k["bytes"] += op["coll_bytes"]
+    return {"trace_ops": len(trace["ops"]), "trace_collectives": kinds}
 
 
 def _kernel_flops(rep: StepReport) -> Dict[str, float]:

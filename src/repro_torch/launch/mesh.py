@@ -19,19 +19,39 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+from torch.distributed.tensor import DTensor
 
 
 def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...],
               device_type: str = "cuda") -> DeviceMesh:
     """A mesh of ``shape`` named ``axes`` over the default process group
-    (whose world size must be the product of ``shape``)."""
+    (whose world size must be the product of ``shape``).  DTensor's
+    sharding-propagation cache is emptied first (``forget_layouts``)."""
     if len(shape) != len(axes):
         raise ValueError(f"mesh shape {shape} and axes {axes} differ in "
                          f"length")
+    forget_layouts()
     return init_device_mesh(device_type, tuple(shape),
                             mesh_dim_names=tuple(axes))
+
+
+def forget_layouts() -> None:
+    """Empty DTensor's sharding-propagation cache.  Its keys compare
+    meshes by shape, names, ranks and device type, not by process group:
+    after a process group is destroyed and another made, the cache hands
+    an op's output a mesh of the dead group, whose collectives then name
+    groups that no longer resolve (or resolve to others).  A new mesh
+    starts from an empty cache: the Python one and, where PyTorch has
+    one (2.13), the C++ dispatch's."""
+    prop = DTensor._op_dispatcher.sharding_propagator
+    for clear in (getattr(prop.propagate_op_sharding, "cache_clear", None),
+                  getattr(torch._C, "_clear_DTensor_sharding_propagator_cache",
+                          None)):
+        if clear is not None:
+            clear()
 
 
 def single_device_mesh(device_type: str = "cuda") -> DeviceMesh:

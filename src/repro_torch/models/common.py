@@ -241,12 +241,19 @@ class Sharder:
     def scope(self) -> contextlib.AbstractContextManager:
         return contextlib.nullcontext()
 
-    def layer_stacks(self, cache: Tree) -> Tree:
-        """A stacked cache (leaves (layers, batch, ...)) laid out for a
-        decode step's layer-by-layer views (on a mesh, a layer dim split
-        over ranks moves its split to the batch dim); here ``cache``
-        itself, whose leaves the step then writes in place."""
-        return cache
+    def decode_layer(self, cache: Tree, i: int) -> Tree:
+        """Layer ``i``'s tree of a stacked cache (leaves (layers, batch,
+        ...)) for a decode step to read and write in place: here each
+        leaf's view ``x[i]`` (on a mesh, a leaf whose layer dim is split
+        over ranks gives the layer's slice moved to its batch split, and
+        the step's writes into it reach the leaf too)."""
+        return map_leaves(lambda x: x.select(0, i), cache)
+
+    def write_state_(self, state: torch.Tensor, new: torch.Tensor
+                     ) -> None:
+        """A decode step's write of a recurrent layer's new state into
+        its view of the stacked cache, in place (cast to its dtype)."""
+        state.copy_(new)
 
     def write_kv_(self, ck: torch.Tensor, cv: torch.Tensor,
                   slot: torch.Tensor, k: torch.Tensor, v: torch.Tensor

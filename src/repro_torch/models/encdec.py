@@ -40,8 +40,7 @@ from repro_torch.models import layers as ll
 from repro_torch.models.common import (IDENTITY_SHARDER, Sharder,
                                        TensorSpec, cast, param, stack_inits,
                                        zeros)
-from repro_torch.models.transformer import (MODES, _layer_views,
-                                            _stack_layer, _unstack,
+from repro_torch.models.transformer import (MODES, _stack_layer, _unstack,
                                             kv_capacity)
 
 
@@ -204,11 +203,9 @@ def dec_forward(params: Dict, x: torch.Tensor, enc_out, cfg, positions,
     seq_capacity = seq_capacity or x.shape[1]
     n = cfg.n_layers
     layers = _unstack(params["dec_layers"], n)
-    if mode == "decode":
-        cache = sharder.layer_stacks(cache)
-    caches = _layer_views(cache, n) if mode == "decode" else [None] * n
     stacked = None
-    for i, (lp, lc) in enumerate(zip(layers, caches)):
+    for i, lp in enumerate(layers):
+        lc = sharder.decode_layer(cache, i) if mode == "decode" else None
         if mode == "train":
             x, _ = checkpoint(_dec_layer, lp, x, enc_out, cfg, positions,
                               mode, None, None, chunk, seq_capacity, sharder,
@@ -219,6 +216,7 @@ def dec_forward(params: Dict, x: torch.Tensor, enc_out, cfg, positions,
             if mode == "prefill":
                 stacked = _stack_layer(stacked, i, n, nc)
             del nc
+        del lc
     if mode == "train":
         return x, None
     if mode == "decode":

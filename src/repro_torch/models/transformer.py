@@ -217,7 +217,8 @@ def apply_layer(p: Dict, x: torch.Tensor, cfg, layer_idx: int, positions,
             ssm_state=st.get("ssm"), remat=(mode == "train"),
             sharder=sharder)
         if mode != "train":
-            new_cache = _update(cache, {"conv": conv, "ssm": ssm}, mode)
+            new_cache = _update(cache, {"conv": conv, "ssm": ssm}, mode,
+                                sharder)
     elif mode == "decode":
         mix, new_cache = ll.attention_decode(p["mixer"], h, cfg, cache,
                                              cur_len, sharder)
@@ -245,15 +246,17 @@ def apply_layer(p: Dict, x: torch.Tensor, cfg, layer_idx: int, positions,
     return x, new_cache, aux
 
 
-def _update(cache: Optional[Dict], new: Dict, mode: str) -> Dict:
+def _update(cache: Optional[Dict], new: Dict, mode: str,
+            sharder: Sharder = IDENTITY_SHARDER) -> Dict:
     """A recurrent layer's new states: returned as they are in prefill;
-    in decode written into ``cache`` (this layer's views of the stacked
-    cache) in place, each cast to the cache leaf's dtype as JAX's update
-    does, and ``cache`` returned."""
+    in decode written into ``cache`` (this layer's tree of the stacked
+    cache, ``Sharder.decode_layer``) in place by ``sharder.write_state_``,
+    each cast to the cache leaf's dtype as JAX's update does, and
+    ``cache`` returned."""
     if mode != "decode":
         return new
     for n, c in cache.items():
-        c.copy_(new[n])
+        sharder.write_state_(c, new[n])
     return cache
 
 
@@ -276,7 +279,7 @@ def _apply_rwkv_layer(p: Dict, x: torch.Tensor, cfg, mode: str,
     if mode == "train":
         return x, None, None
     return x, _update(cache, {"shift_tm": shift_tm, "shift_cm": shift_cm,
-                              "wkv": wkv}, mode), None
+                              "wkv": wkv}, mode, sharder), None
 
 
 def _unstack(tree: Dict, n: int) -> List[Dict]:
@@ -332,19 +335,6 @@ class _UnbindLayers(torch.autograd.Function):
                                   stride=contiguous_strides(shape))
 
 
-def _layer_views(tree: Dict, n: int) -> List[Dict]:
-    """The per-layer trees of a stacked cache, as views a decode step
-    writes its entries through in place: a plain leaf split by one
-    ``unbind``, as ``_unstack`` does, a DTensor leaf indexed layer by
-    layer (DTensor refuses an in-place write into an ``unbind``
-    output)."""
-    split = {k: _layer_views(v, n) if isinstance(v, dict)
-             else [v[i] for i in range(n)] if isinstance(v, DTensor)
-             else v.unbind(0)
-             for k, v in tree.items()}
-    return [{k: v[i] for k, v in split.items()} for i in range(n)]
-
-
 def _stack_layer(stacked: Any, i: int, n: int, entry: Any) -> Any:
     """Write layer ``i``'s cache entry (a dict tree) into entry ``i`` of
     the cache stacked over ``n`` layers, allocating the stacked leaves
@@ -390,7 +380,9 @@ def decoder_forward(layers_params, x: torch.Tensor, cfg, positions,
     Train returns no cache; prefill returns a new stacked cache in the
     compute dtype (the RWKV and ssm states in f32), each layer's entry
     written into it as the layer returns it (``_stack_layer``); decode
-    writes into ``cache`` in place and returns it.  A hybrid arch's
+    writes into ``cache`` in place, layer by layer
+    (``Sharder.decode_layer``: on a mesh that splits the cache's layers,
+    one layer's rows moved at a time), and returns it.  A hybrid arch's
     params and cache are tuples over the positions of its period; the
     loop runs period by period, position by position, as the JAX scan
     over periods does."""
@@ -400,17 +392,14 @@ def decoder_forward(layers_params, x: torch.Tensor, cfg, positions,
     n_steps = cfg.n_layers // n_pos
     stacks = layers_params if hybrid else (layers_params,)
     per_layer = [_unstack(t, n_steps) for t in stacks]
-    if mode == "decode":
-        cache = sharder.layer_stacks(cache)
-        caches = [_layer_views(c, n_steps) for c in (cache if hybrid
-                                                     else (cache,))]
-    else:
-        caches = [[None] * n_steps] * n_pos
+    caches = cache if hybrid else (cache,)
     stacked: List[Optional[Dict]] = [None] * n_pos
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(n_steps):
         for pos in range(n_pos):
-            lp, lc = per_layer[pos][i], caches[pos][i]
+            lp = per_layer[pos][i]
+            lc = (sharder.decode_layer(caches[pos], i) if mode == "decode"
+                  else None)
             if mode == "train":
                 x, nc, a = checkpoint(apply_layer, lp, x, cfg, pos,
                                       positions, mode, None, None, chunk,
@@ -424,7 +413,8 @@ def decoder_forward(layers_params, x: torch.Tensor, cfg, positions,
                 aux = aux + a
             if mode == "prefill":
                 stacked[pos] = _stack_layer(stacked[pos], i, n_steps, nc)
-            del nc                      # copied: not kept into the next layer
+            # copied or written back: not kept into the next layer
+            del nc, lc
     if mode == "train":
         return x, None, aux
     if mode == "decode":

@@ -142,6 +142,27 @@ def loss_and_grads(model: Model, opts: TrainOptions, params: Dict,
     return unflatten(params, grads), loss.detach(), aux.detach()
 
 
+def _accumulate(acc: Any, grads: Any, axes: Any, sharder: Sharder) -> Any:
+    """``acc`` plus the gradients ``grads`` laid out like the params
+    (``sharder.ac`` by the params' logical ``axes``, where given; ``acc``
+    None: the laid-out gradients), leaf by leaf in ``leaves`` order.  Each leaf of ``grads`` and ``acc`` is
+    taken out of its dict as its turn comes, so that a leaf's partial
+    sum, its laid-out copy and the sum are alive together for one leaf,
+    not for the whole tree (three f32 copies of mixtral-8x22b's expert
+    gradients on each rank of its train_4k cell)."""
+    if isinstance(grads, dict):
+        return {k: _accumulate(None if acc is None else acc.pop(k),
+                               grads.pop(k),
+                               None if axes is None else axes[k], sharder)
+                for k in sorted(grads)}
+    if type(grads) is tuple:
+        return tuple(_accumulate(None if acc is None else acc[i], g,
+                                 None if axes is None else axes[i], sharder)
+                     for i, g in enumerate(grads))
+    x = grads if axes is None else sharder.ac(grads, axes)
+    return x if acc is None else torch.add(acc, x)
+
+
 def build_train_step(model: Model, opts: Optional[TrainOptions] = None,
                      sharder: Sharder = IDENTITY_SHARDER,
                      param_axes: Any = None) -> Callable:
@@ -153,7 +174,8 @@ def build_train_step(model: Model, opts: Optional[TrainOptions] = None,
 
     ``sharder`` runs the model on a mesh; ``param_axes``, the params'
     logical-axes tree, lays each gradient out like its param as soon as
-    it is produced (``shard_like_params``), as the JAX step does."""
+    it is produced (``_accumulate``, leaf by leaf), as the JAX step
+    does."""
     opts = opts or default_options_for(model.cfg)
 
     def shard_like_params(grads):
@@ -182,8 +204,7 @@ def build_train_step(model: Model, opts: Optional[TrainOptions] = None,
             grads, loss, aux = None, 0.0, 0.0
             for mb in microbatches(batch):
                 g, l, a = loss_and_grads(model, opts, params, mb, sharder)
-                g = shard_like_params(g)
-                grads = g if grads is None else map_leaves(torch.add, grads, g)
+                grads = _accumulate(grads, g, param_axes, sharder)
                 loss, aux = loss + l, aux + a
             inv = 1.0 / opts.accum_steps
             grads = map_leaves(lambda g: g * inv, grads)
@@ -191,7 +212,7 @@ def build_train_step(model: Model, opts: Optional[TrainOptions] = None,
         else:
             grads, loss, aux = loss_and_grads(model, opts, params, batch,
                                               sharder)
-            grads = shard_like_params(grads)
+            grads = _accumulate(None, grads, param_axes, sharder)
 
         new_state = dict(state)
         if opts.grad_compress:

@@ -34,6 +34,12 @@ ARCHS = sorted(REGISTRY)
 KV_SEQ_ARCHS = ("deepseek-67b", "qwen2-vl-7b")
 KV_SEQ_STEPS = 8
 TRAIN_ARCHS = ("stablelm-1.6b", "olmoe-1b-7b")
+# decode with the cache laid out as the dry run's decode batch (every
+# leaf's leading dim, the layers, split over "data"): a causal LM, an
+# MoE, RWKV's states and whisper's self and cross caches
+LAYER_SPLIT_ARCHS = ("stablelm-1.6b", "olmoe-1b-7b", "rwkv6-7b",
+                     "whisper-small")
+LAYER_SPLIT_STEPS = 3
 # context-parallel prefill: the rules' mapping overridden as the JAX dry
 # run's ``rules_override`` does, query rows over "model" and no heads
 # split (a causal LM, one with a vision prefix, and an encoder-decoder
@@ -199,6 +205,39 @@ def _serve_kv_seq(arch, mesh):
                         for n in ("k", "v"))
     return {"rules_kv_seq": sh.rules.mapping["kv_seq"],
             "cache_split_dims": split_dims, "errs": errs,
+            "cache_err": cache_err}
+
+
+def _decode_layer_split(arch, mesh, b=B):
+    """A plain prefill, its cache laid out by ``batch_shardings`` under
+    the decode rules of a batch of ``B`` (the layers split over "data")
+    and LAYER_SPLIT_STEPS decode steps against the unsharded port: each
+    step's logits, whether each step returned its cache argument, and
+    the cache after the steps.  ``b`` = 3 does not divide the 2 ranks of
+    "data": each layer then moves whole to every rank."""
+    cfg = smoke(get_config(arch))
+    model = build_model(cfg, torch.float32)
+    params = model.init(0, "cpu")
+    sh = _sharder(cfg, mesh, B, CAP, "decode")
+    dparams = sh.distribute(params, sh.param_shardings(model.param_specs()[1]))
+    batch = _batch(cfg, b, S, 1)
+    g = torch.Generator().manual_seed(2)
+    toks = [torch.randint(0, cfg.vocab_size, (b, 1), generator=g)
+            for _ in range(LAYER_SPLIT_STEPS)]
+    with torch.no_grad():
+        _, cache = model.prefill(params, batch, seq_capacity=CAP)
+        dcache = sh.distribute(cache, sh.batch_shardings(cache))
+        split = sorted({str(x.placements) for x in leaves(dcache)})
+        errs, returned = [], []
+        for i, tok in enumerate(toks):
+            want, cache = model.decode(params, {"tokens": tok}, cache, S + i)
+            got, out = model.decode(dparams, {"tokens": tok}, dcache, S + i,
+                                    sharder=sh)
+            errs.append(_rel(got, want))
+            returned.append(out is dcache)
+        cache_err = max(float((d.full_tensor() - c).abs().max())
+                        for d, c in zip(leaves(dcache), leaves(cache)))
+    return {"placements": split, "errs": errs, "returned": returned,
             "cache_err": cache_err}
 
 
@@ -574,6 +613,11 @@ def _worker(rank, store, out):
             _case(results, f"q_seq/{arch}", _serve_q_seq, arch, mesh)
         for arch in KV_SEQ_ARCHS:
             _case(results, f"kv_seq/{arch}", _serve_kv_seq, arch, mesh)
+        for arch in LAYER_SPLIT_ARCHS:
+            _case(results, f"layer_split/{arch}", _decode_layer_split, arch,
+                  mesh)
+        _case(results, "layer_split_whole/stablelm-1.6b", _decode_layer_split,
+              "stablelm-1.6b", mesh, 3)
         for arch in TRAIN_ARCHS:
             _case(results, f"train/{arch}", _train, arch, mesh, out)
         for vocab in XENT_VOCABS:

@@ -15,6 +15,12 @@ never share a rendezvous).  f32 compute at smoke size.
 * smoke deepseek-67b and qwen2-vl-7b (1 kv head) under the decode rules:
   the cache split along its slots, a prefill and 8 decode steps within
   1e-5 of the unsharded port.
+* smoke stablelm, olmoe, rwkv6-7b and whisper-small under the decode
+  rules, the cache laid out as the dry run's decode batch (its layers
+  split over "data"): 3 decode steps within 1e-5 of the unsharded port,
+  each returning its cache argument, the cache after them equal to the
+  plain one's within 1e-5; stablelm once more at a batch that does not
+  divide "data".
 * Context-parallel prefills (query rows over "model", the rules
   overridden) of smoke stablelm, qwen2-vl (a vision prefix) and whisper
   (encoder and cross attention not causal), on the plain path and on the
@@ -223,6 +229,27 @@ def test_decode_rules_split_the_cache_along_its_slots(run, arch):
     assert r["cache_split_dims"] == [1, 3], r
     assert len(r["errs"]) == 1 + gw.KV_SEQ_STEPS
     assert max(r["errs"]) <= gw.LOGIT_TOL, r
+    assert r["cache_err"] <= 1e-5, r
+
+
+@pytest.mark.parametrize("case", [f"layer_split/{a}"
+                                  for a in gw.LAYER_SPLIT_ARCHS]
+                         + ["layer_split_whole/stablelm-1.6b"])
+def test_layer_split_decode_moves_one_layer_and_returns_its_cache(run, case):
+    """A cache laid out as the dry run's decode batch, its layers split
+    over "data" (``batch_shardings``): each decode step moves one layer's
+    slice at a time to the batch split (``MeshSharder.decode_layer``),
+    or whole to every rank where the batch (3) does not divide "data",
+    and writes back into the argument what it wrote (the new KV rows,
+    RWKV's new states; whisper's cross cache is read only).  Each of
+    LAYER_SPLIT_STEPS steps within 1e-5 of the largest logit of the
+    unsharded port, each returning its cache argument itself, and the
+    cache after them within 1e-5 of the plain one's."""
+    r = _ok(run[0], case)
+    assert r["placements"] == ["(Shard(dim=0), Replicate())"], r
+    assert len(r["errs"]) == gw.LAYER_SPLIT_STEPS
+    assert max(r["errs"]) <= gw.LOGIT_TOL, r
+    assert all(r["returned"]), r
     assert r["cache_err"] <= 1e-5, r
 
 

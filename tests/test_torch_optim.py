@@ -118,3 +118,84 @@ def test_clip_by_global_norm_matches_jax(max_norm):
     _close(jc, tc)
     if max_norm == 1.0:
         assert float(global_norm(tc)) == pytest.approx(1.0, rel=1e-5)
+
+
+def _stacked(rng, dtype):
+    """A stacked leaf (6 layers of (5, 7)), a matrix, a vector and a
+    scalar, drawn with numpy and cast to ``dtype``."""
+    return {"stack": torch.as_tensor(rng.standard_normal((6, 5, 7)),
+                                     dtype=torch.float32).to(dtype),
+            "w": torch.as_tensor(rng.standard_normal((3, 4)),
+                                 dtype=torch.float32).to(dtype),
+            "b": torch.as_tensor(rng.standard_normal(7),
+                                 dtype=torch.float32).to(dtype),
+            "s": torch.tensor(0.5, dtype=dtype)}
+
+
+def _three_steps(monkeypatch, chunk_bytes, dtype, moments, mesh=None):
+    """Three AdamW steps with ``UPDATE_CHUNK_BYTES`` = ``chunk_bytes``
+    from the same seeded params and gradients: the params and moments
+    after them, as plain tensors.  On ``mesh`` every leaf is a
+    replicated DTensor (the update then runs on the local shards)."""
+    from repro_torch.optim import adamw
+    monkeypatch.setattr(adamw, "UPDATE_CHUNK_BYTES", chunk_bytes)
+    rng = np.random.default_rng(3)
+    params = _stacked(rng, dtype)
+    state = adamw_init(params, moments)
+    grads = [_stacked(rng, dtype) for _ in range(3)]
+    if mesh is not None:
+        from torch.distributed.tensor import Replicate, distribute_tensor
+
+        def put(t):
+            return distribute_tensor(t, mesh, [Replicate()] * 2)
+        params = {k: put(v) for k, v in params.items()}
+        state = {"m": {k: put(v) for k, v in state["m"].items()},
+                 "v": {k: put(v) for k, v in state["v"].items()},
+                 "count": put(state["count"])}
+        grads = [{k: put(v) for k, v in g.items()} for g in grads]
+    for i, g in enumerate(grads):
+        params, state = adamw_update(g, state, params,
+                                     torch.tensor(1e-2 * (i + 1)))
+    return [(t.to_local() if hasattr(t, "to_local") else t).clone()
+            for t in leaves((params, state["m"], state["v"]))]
+
+
+@pytest.mark.parametrize("moments", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chunked_update_is_the_one_pass_update_bit_for_bit(monkeypatch, dtype,
+                                                           moments):
+    """``adamw_update`` passes a leaf a few rows at a time
+    (``UPDATE_CHUNK_BYTES`` of f32): at 2 rows of the stacked leaf a
+    pass (3 passes) and at one row of every leaf a pass (4 bytes), the
+    params and moments after three steps equal those of one pass per
+    leaf bit for bit, f32 and bf16 params and moments."""
+    from repro_torch.optim import adamw
+    monkeypatch.setattr(adamw, "UPDATE_CHUNK_BYTES", 2 * 5 * 7 * 4)
+    assert adamw._rows_per_pass(torch.empty(6, 5, 7)) == 2
+    assert adamw._rows_per_pass(torch.empty(7)) == 70
+    one = _three_steps(monkeypatch, 1 << 40, dtype, moments)
+    chunked = _three_steps(monkeypatch, 2 * 5 * 7 * 4, dtype, moments)
+    bytewise = _three_steps(monkeypatch, 4, dtype, moments)
+    for a, b, c in zip(one, chunked, bytewise):
+        assert a.dtype == b.dtype and torch.equal(a, b) and torch.equal(a, c)
+
+
+def test_chunked_update_on_local_shards_is_the_plain_update(monkeypatch):
+    """On the (1, 1) mesh of a world-1 gloo group, every leaf a
+    DTensor laid out as its gradient and moments are: the update runs on
+    the local shards, chunked, and equals the plain tensors' bit for
+    bit (bf16 params, bf16 moments)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    plain = _three_steps(monkeypatch, 2 * 5 * 7 * 4, torch.bfloat16,
+                         torch.bfloat16)
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cpu")
+        sharded = _three_steps(monkeypatch, 2 * 5 * 7 * 4, torch.bfloat16,
+                               torch.bfloat16, mesh)
+    finally:
+        dist.destroy_process_group()
+    for a, b in zip(plain, sharded):
+        assert torch.equal(a, b)
