@@ -122,7 +122,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
                train cell's step (15 quantize ops, no forward-only
                kernel): no launch, no device memory, each total beside
                the analytic 2 N tokens plus attention (and the Mamba
-               recurrence)
+               recurrence); then the detailed rung on the card's model:
+               DesimBackend replays stablelm-1.6b's and olmoe-1b-7b's
+               prefill dry runs and the train cell's on h100_card() (the
+               port's own simulator, one H100 SXM5), one line each with
+               the native ms (the prefills' NativeBackend, phase 12's
+               median step), the predicted ms, predicted/measured, the
+               dry run's flops and bytes and the card; it fails if a
+               replay raises, a prediction is not positive, or the
+               trace's flops and bytes are not the dry run's totals
 17. jamba  -- everything before freed; jamba-v0.1-52b at full width cut to
                one period (8 of its 32 layers: 52 B parameters do not fit
                one card), drawn in f32 and cast to bf16 leaf by leaf (the
@@ -2173,7 +2181,7 @@ def _matmul_params(cfg, tree) -> float:
                for k, v in tree.items())
 
 
-def phase_fidelity_dryruns(torch, counters, seed: int, card: str) -> dict:
+def phase_fidelity_dryruns(torch, counters, seed: int, card: str):
     """DryRunBackend on fake CUDA tensors at full width, params included
     (their specs from an init on fake tensors): stablelm-1.6b's,
     olmoe-1b-7b's, rwkv6-7b's, deepseek-67b's, jamba-v0.1-52b's (all
@@ -2187,7 +2195,8 @@ def phase_fidelity_dryruns(torch, counters, seed: int, card: str) -> dict:
     that runs it (whisper: ``flash_per_prefill``; the train step: once
     per parameter leaf, quantize only); every prefill's ops all have a
     cost rule, and qwen2-vl-7b's and whisper-small's flops lie within 1%
-    of the analytic count."""
+    of the analytic count.  Returns the summaries by label, and each
+    run's program and report by label."""
     from repro_torch.configs import get_config
     from repro_torch.core.fidelity import (DryRunBackend, StepProgram,
                                            TensorSpec, eval_shape, specs_of)
@@ -2229,7 +2238,7 @@ def phase_fidelity_dryruns(torch, counters, seed: int, card: str) -> dict:
                              (state, specs_of(batch_to(pipe.batch(0), "cpu"))),
                              device="cuda"),
                  {"quantize_blocks": n_leaves}, TRAIN_BATCH, TRAIN_SEQ, True))
-    out = {}
+    out, reps = {}, {}
     for label, cfg, prog, want, b, s, train in runs:
         torch.cuda.synchronize()
         mem0 = torch.cuda.memory_allocated()
@@ -2263,6 +2272,7 @@ def phase_fidelity_dryruns(torch, counters, seed: int, card: str) -> dict:
                           ops=len(rep.detail["ops"]),
                           argument_bytes=rep.memory["argument_bytes"],
                           host_s=rep.wall_s)
+        reps[label] = prog, rep
         print(f"fidelity dryrun {label}: {rep.flops / 1e12:.4f} TFLOP "
               f"({rep.flops / analytic:.4f} of the analytic "
               f"{analytic / 1e12:.4f}), {rep.bytes_accessed / 1e9:.3f} GB; "
@@ -2273,6 +2283,43 @@ def phase_fidelity_dryruns(torch, counters, seed: int, card: str) -> dict:
               f"{rep.memory['argument_bytes'] / 2**30:.2f} GiB never "
               f"allocated; {rep.wall_s:.1f} s on the host; no launch, device "
               f"memory unchanged [{card}]")
+    return out, reps
+
+
+def phase_fidelity_desim(measured: dict, reps: dict, card: str) -> dict:
+    """The detailed rung: ``DesimBackend`` on ``h100_card()`` (the port's
+    simulator, one H100 SXM5) replays each dry run of ``reps`` named in
+    ``measured`` (label -> the step's measured ms on the card), one line
+    each: native ms, predicted ms, predicted/measured, the dry run's
+    flops and bytes.  No bound on the ratio; the trace must hold the dry
+    run's flops and bytes, and the prediction must be positive."""
+    import math
+
+    from repro_torch.core.fidelity import DesimBackend
+    from repro_torch.sim import h100_card
+    out = {}
+    for label, native_ms in measured.items():
+        prog, rep = reps[label]
+        got = DesimBackend(board=h100_card()).run(prog, dryrun_report=rep)
+        regions = [o for o in got.detail["trace"]["ops"]
+                   if o["kind"] == "compute"]
+        check(math.fsum(o["flops"] for o in regions) == rep.flops
+              and math.fsum(o["bytes"] for o in regions)
+              == rep.bytes_accessed,
+              f"desim {label}: the trace's flops and bytes are not the dry "
+              f"run's {rep.flops}, {rep.bytes_accessed}")
+        pred_ms = got.predicted_step_s * 1e3
+        check(pred_ms > 0, f"desim {label}: predicted {pred_ms} ms")
+        out[label] = dict(native_ms=native_ms, desim_ms=pred_ms,
+                          ratio=pred_ms / native_ms, flops=rep.flops,
+                          bytes=rep.bytes_accessed, trace_ops=len(
+                              got.detail["trace"]["ops"]),
+                          host_s=got.wall_s)
+        print(f"fidelity desim {label}: native {native_ms:.3f} ms, "
+              f"desim-predicted {pred_ms:.3f} ms on h100_card(), "
+              f"predicted/measured {pred_ms / native_ms:.4f}; dry run "
+              f"{rep.flops / 1e12:.4f} TFLOP, {rep.bytes_accessed / 1e9:.3f} "
+              f"GB [{card}]")
     return out
 
 
@@ -2475,9 +2522,17 @@ def main() -> int:
     # 16. fidelity: the dry runs on fake CUDA tensors, host-only
     gc.collect()
     torch.cuda.empty_cache()
-    dryruns = phase_fidelity_dryruns(torch, counters, args.seed, card)
+    dryruns, dry_reps = phase_fidelity_dryruns(torch, counters, args.seed,
+                                               card)
+    prefill = f"prefill b={FIDELITY_B} s={FIDELITY_S}"
+    desim = phase_fidelity_desim(
+        {f"{ARCH} {prefill}": native[f"{ARCH} prefill"],
+         f"{MOE_ARCH} {prefill}": native[f"{MOE_ARCH} prefill"],
+         f"{ARCH} train step b={TRAIN_BATCH} s={TRAIN_SEQ} grad_compress":
+             step_ms}, dry_reps, card)
+    del dry_reps
     print(json.dumps({"fidelity": {
-        "native_ms": native, "dryrun": dryruns,
+        "native_ms": native, "dryrun": dryruns, "desim": desim,
         "shape": f"b={FIDELITY_B} s={FIDELITY_S}"}}))
 
     # 17. jamba-v0.1-52b served at one period, everything before freed

@@ -7,7 +7,7 @@
 4. dry-run the step on fake
    tensors and cost its ops        (gem5: atomic fidelity)
 5. replay the step's cost on a
-   parameterized TPU machine model (gem5: detailed/O3 fidelity)
+   parameterized model of the card (gem5: detailed/O3 fidelity)
 6. script the simulation with the
    Simulator exit-event loop       (gem5 stdlib: boards + exit events,
                                     checkpoint / restore / re-sweep)
@@ -15,38 +15,29 @@
 Run on the card: PYTHONPATH=src python examples/quickstart_torch.py
 On the CPU, add:  --device cpu
 
-The model, the train step and the fidelity backends are the port's
-(``repro_torch``); the machine model that times the trace in steps 5 and
-6 is the JAX-free simulator half of the repo (``repro.sim``,
-``repro.core.desim.trace``), handed to the port's ``DesimBackend`` as a
-replay callable.  Nothing here imports JAX.  ``--trace-dir`` and
-``--debug-flags`` work as in ``examples/quickstart.py``.
+Everything here is the port's (``repro_torch``): the model, the train
+step, the fidelity backends, and the simulator that times the trace in
+steps 5 and 6 (``repro_torch.sim`` on ``h100_card()``, one NVIDIA H100
+SXM5).  Nothing here imports JAX or the ``repro`` package.
+``--trace-dir`` and ``--debug-flags`` work as in
+``examples/quickstart.py``.
 """
 
 import argparse
 
-from repro.core.desim.trace import HloTrace, TraceOp, analytic_trace
-from repro.sim import ExitEventType, Simulator, SteadyStateWorkload, v5e_pod
 from repro_torch.configs import get_config, smoke
 from repro_torch.configs.base import ShapeConfig
+from repro_torch.core.desim.machine import H100_SXM
+from repro_torch.core.desim.trace import analytic_trace
 from repro_torch.core.fidelity import (DesimBackend, DryRunBackend,
                                        StepProgram, specs_of)
 from repro_torch.data import SyntheticPipeline
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model
+from repro_torch.sim import (ExitEventType, Simulator, SteadyStateWorkload,
+                             h100_card)
 from repro_torch.train import (TrainOptions, batch_to, build_train_step,
                                init_train_state)
-
-
-def sim_replay(board_fn):
-    """A ``DesimBackend`` replay: the trace dict as an ``HloTrace`` of
-    ``TraceOp``s, run to completion on a fresh ``board_fn()``."""
-    def replay(trace, record_stats=False):
-        t = HloTrace(name=trace["name"],
-                     ops=[TraceOp(**op) for op in trace["ops"]])
-        return Simulator(board_fn(), t,
-                         record_stats=record_stats).run_to_completion()
-    return replay
 
 
 def main(argv=None) -> None:
@@ -61,7 +52,7 @@ def main(argv=None) -> None:
                          "All)")
     cli = ap.parse_args(argv)
     if cli.debug_flags:
-        from repro.sim import enable_debug_flags
+        from repro_torch.sim import enable_debug_flags
         enable_debug_flags(cli.debug_flags)
     device = resolve_device(cli.device)
 
@@ -97,25 +88,26 @@ def main(argv=None) -> None:
           f"{rep.bytes_accessed:.2e} ({len(rep.detail['ops'])} ops, "
           f"kernels {rep.detail['kernels']})")
 
-    # -- 5. desim fidelity: predicted step time on a TPU machine model -------
-    rep2 = DesimBackend(sim_replay(v5e_pod)).run(prog, dryrun_report=rep)
-    print(f"desim: predicted TPU-pod step time = "
+    # -- 5. desim fidelity: predicted step time on the card's model ---------
+    rep2 = DesimBackend(board=h100_card()).run(prog, dryrun_report=rep)
+    print(f"desim: predicted step time on one H100 = "
           f"{rep2.predicted_step_s:.3e} s")
 
     # -- 6. the Simulator front-end: exit events + checkpoint/restore --------
     # a 16-step steady-state training workload with the dry run's per-step
     # costs spread over the layers (per-layer all-reduce: data-parallel
-    # grad sync when this step is sharded over the pod)
+    # grad sync over the board's cards; free on one card)
     L = cfg.n_layers
+    card = h100_card()
     step_trace = analytic_trace(
         "quick_step", L, rep.flops / L, rep.bytes_accessed / L,
         [{"kind": "all-reduce", "bytes": 2 * rep.bytes_accessed / L,
-          "participants": 256}])
-    sim = Simulator(v5e_pod(), SteadyStateWorkload(step_trace, 16),
+          "participants": card.machine.num_chips}])
+    sim = Simulator(card, SteadyStateWorkload(step_trace, 16),
                     outdir=cli.trace_dir,
                     trace_events=cli.trace_dir is not None,
                     verbose=cli.trace_dir is not None)
-    per_step = v5e_pod().executor().execute(step_trace).makespan_s
+    per_step = h100_card().executor().execute(step_trace).makespan_s
     mid = int(per_step * 1e9 * 4)                # ticks are ns: 4 steps in
     sim.schedule_max_tick(mid)                   # pause after ~4 steps...
     sim.schedule_checkpoint(mid)                 # ...checkpoint there
@@ -127,8 +119,8 @@ def main(argv=None) -> None:
     # restore the checkpoint onto a machine with doubled HBM bandwidth: the
     # remaining 12 steps re-time under the new hardware (checkpoint once,
     # sweep hardware -- the gem5 DSE workflow)
-    fast = Simulator.from_checkpoint(ckpt, board=v5e_pod(
-        chip={"hbm_bw": 2 * 819e9}))
+    fast = Simulator.from_checkpoint(ckpt, board=h100_card(
+        chip={"hbm_bw": 2 * H100_SXM["hbm_bw"]}))
     res_fast = fast.run_to_completion()
     print(f"simulator: 16-step nominal={sim.result().makespan_s:.3e}s "
           f"2xHBM-from-checkpoint={res_fast.makespan_s:.3e}s")

@@ -11,8 +11,9 @@ function and the specs of its inputs):
                         nothing is allocated or launched; every op it
                         dispatches is costed (``core.op_cost``), the
                         port's kernels as one op each at their ``cost``.
-* ``DesimBackend``   -- hand the dry run's cost, as an elastic trace, to
-                        a replay that times it on a machine model (gem5's
+* ``DesimBackend``   -- replay the dry run's cost, as an elastic trace,
+                        on the port's own simulator (``core.desim``,
+                        ``sim``), the card's machine by default (gem5's
                         detailed mode).
 
 All three return a ``StepReport`` with the JAX package's fields.  A
@@ -20,10 +21,8 @@ program on a device mesh (``StepProgram.mesh`` and ``in_shardings``) is
 dry-run as one rank of it: each input a fake local shard wrapped as a
 DTensor, every cost per device (``launch/dryrun.py`` runs the production
 meshes under PyTorch's fake process group).  The
-port imports nothing of ``repro``, so the replay is the caller's: a
-callable that takes the trace as plain data (``TraceOp``'s field names)
-and returns the makespan, such as one built on the JAX-free
-``repro.sim`` (``examples/quickstart_torch.py``).
+port imports nothing of ``repro``: the simulator it replays on is its own
+copy of the reference's, pure Python.
 """
 
 from __future__ import annotations
@@ -245,8 +244,8 @@ class DryRunBackend(Backend):
 
 def step_trace(name: str, report: StepReport) -> Dict[str, Any]:
     """The elastic trace of a step as plain data, in
-    ``repro.core.desim.trace.TraceOp``'s field names, as
-    ``HloTrace.from_hlo_text`` builds it: the op stream cut at each
+    ``core.desim.trace.TraceOp``'s field names, as the reference's
+    ``HloTrace.from_hlo_text`` builds its trace: the op stream cut at each
     collective (``detail["stream_collectives"]``) into compute regions
     (``region0``, ``region1``, ...), each collective an op between them
     with its kind, ``coll_bytes`` (its operand bytes per device, as JAX
@@ -290,42 +289,55 @@ def step_trace(name: str, report: StepReport) -> Dict[str, Any]:
 
 class DesimBackend(Backend):
     """Discrete-event timing replay of the step's cost (gem5 detailed
-    mode).
+    mode), as JAX's ``DesimBackend`` replays its compiled step.
 
-    ``replay(trace)`` takes ``step_trace``'s dict and returns the
-    makespan in seconds, or a result with ``makespan_s`` (kept in
-    ``detail["desim"]``).  With ``record_stats=True`` it is called as
-    ``replay(trace, record_stats=True)`` and the result's ``stats`` go
-    into ``detail["stats"]``.  Without a ``dryrun_report`` the dry run is
-    made first."""
+    The dry run's report (made first if none is given) becomes
+    ``step_trace``'s elastic trace, an ``HloTrace`` of ``TraceOp``s
+    (``core.desim.trace``), which runs to completion through the port's
+    ``sim.Simulator`` front end on ``board``, else on a board of
+    ``machine``, else of ``core.desim.machine.default_cluster(prog.mesh)``:
+    the card's machine for the program's mesh, one NVIDIA H100 SXM5
+    without one.  A board this backend builds times collectives with the
+    ring algorithm, the card's (the simulator has no NVSwitch topology).
+    ``detail["trace"]`` keeps ``step_trace``'s dict and
+    ``detail["desim"]`` the ``ExecResult``.
+
+    ``record_stats=True`` also dumps the run's gem5-style statistics tree
+    into ``detail["stats"]`` (flat dict) and ``detail["stats_text"]``
+    (stats.txt-style dump).  ``workers=N`` (N>1) shards the machine's
+    pods across N worker processes (``core.desim.parallel``): the same
+    numbers, less wall clock on multipod boards."""
 
     kind = "desim"
 
-    def __init__(self, replay: Optional[Callable] = None,
-                 record_stats: bool = False):
-        self.replay = replay
+    def __init__(self, machine=None, record_stats: bool = False,
+                 board=None, workers: int = 1):
+        self.machine = machine
+        self.board = board
         self.record_stats = record_stats
+        self.workers = int(workers or 1)
 
     def run(self, prog: StepProgram,
             dryrun_report: Optional[StepReport] = None) -> StepReport:
-        if self.replay is None:
-            raise ValueError(
-                "DesimBackend needs replay=: a callable that takes the "
-                "trace dict {'name', 'ops': [{'kind', 'flops', 'bytes', "
-                "'name', ...}]} and returns the makespan in seconds, e.g. one "
-                "that builds repro.core.desim.trace.HloTrace from "
-                "TraceOp(**op) and runs repro.sim.Simulator on a board "
-                "(examples/quickstart_torch.py, sim_replay)")
+        from repro_torch.core.desim.machine import default_cluster
+        from repro_torch.core.desim.trace import HloTrace, TraceOp
+        from repro_torch.sim import Board, Simulator
+
         if dryrun_report is None:
             dryrun_report = DryRunBackend().run(prog)
-        trace = step_trace(prog.name, dryrun_report)
+        board = self.board or Board(
+            self.machine or default_cluster(prog.mesh), algorithm="ring")
         t0 = time.perf_counter()
-        result = (self.replay(trace, record_stats=True) if self.record_stats
-                  else self.replay(trace))
+        trace = step_trace(prog.name, dryrun_report)
+        sim = Simulator(board, HloTrace(
+            name=prog.name, ops=[TraceOp(**op) for op in trace["ops"]],
+            meta={"total_flops": dryrun_report.flops or 0.0,
+                  "total_bytes": dryrun_report.bytes_accessed or 0.0}),
+            record_stats=self.record_stats, workers=self.workers)
+        result = sim.run_to_completion()
         rep = StepReport(self.kind, prog.name,
                          wall_s=time.perf_counter() - t0,
-                         predicted_step_s=float(getattr(result, "makespan_s",
-                                                        result)),
+                         predicted_step_s=result.makespan_s,
                          flops=dryrun_report.flops,
                          bytes_accessed=dryrun_report.bytes_accessed,
                          collective_bytes=dryrun_report.collective_bytes,
@@ -333,8 +345,9 @@ class DesimBackend(Backend):
         rep.detail["desim"] = result
         rep.detail["trace"] = trace
         rep.detail["ops"] = dryrun_report.detail.get("ops")
-        if self.record_stats:
-            rep.detail["stats"] = getattr(result, "stats", None)
+        if self.record_stats and sim.sim_root is not None:
+            rep.detail["stats"] = result.stats
+            rep.detail["stats_text"] = sim.sim_root.stats.dump_text()
         return rep
 
 

@@ -88,6 +88,7 @@ import torch.distributed as dist
 
 from repro_torch.configs import REGISTRY, SHAPES, get_config
 from repro_torch.configs.base import ArchConfig, ShapeConfig, cell_runnable
+from repro_torch.core.desim.machine import H100_SXM
 from repro_torch.core.fidelity import (DryRunBackend, StepProgram,
                                        StepReport, step_trace)
 from repro_torch.dist.sharding import MeshSharder, make_rules, mesh_axes
@@ -100,11 +101,12 @@ from repro_torch.serve.step import build_decode_step, build_prefill_step
 from repro_torch.train.step import (TrainOptions, build_train_step,
                                     default_options_for, train_state_specs)
 
-# NVIDIA H100 SXM5 constants (NVIDIA H100 Tensor Core GPU datasheet)
-PEAK_FLOPS = 989e12        # dense bf16 tensor-core peak, FLOP/s
-HBM_BW = 3.35e12           # HBM3, bytes/s
-NVLINK_BW = 450e9          # NVLink 4, bytes/s per direction (900 GB/s both)
-HBM_BYTES = 80e9           # HBM3 capacity
+# The card's constants, from the desim machine's catalog entry (one owner
+# for the dry run's roofline and the desim replay): one NVIDIA H100 SXM5
+PEAK_FLOPS = H100_SXM["peak_flops"]    # dense bf16 tensor-core peak, FLOP/s
+HBM_BW = H100_SXM["hbm_bw"]            # HBM3, bytes/s
+NVLINK_BW = H100_SXM["nvlink_bw"]      # NVLink 4, bytes/s per direction
+HBM_BYTES = H100_SXM["hbm_bytes"]      # HBM3 capacity
 
 # Gradient-accumulation microbatching per train cell: the JAX dry run's
 # choice (src/repro/launch/dryrun.py), kept so that the two dry runs cost

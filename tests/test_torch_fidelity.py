@@ -40,7 +40,7 @@ from repro.configs.base import ShapeConfig as JaxShapeConfig
 from repro.core import fidelity as jf
 from repro.data import SyntheticPipeline as JaxPipeline
 from repro.models import build_model as jax_build_model
-from repro.sim import v5e_pod
+from repro.sim import v5e_pod as jax_v5e_pod
 from repro.train import TrainOptions as JaxTrainOptions
 from repro.train import build_train_step as jax_build_train_step
 from repro.train import init_train_state as jax_init_train_state
@@ -57,6 +57,7 @@ from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
 from repro_torch.models import build_model
 from repro_torch.models import layers, rwkv
 from repro_torch.serve.step import build_prefill_step
+from repro_torch.sim import v5e_pod
 from repro_torch.train import (TrainOptions, batch_to, build_train_step,
                                init_train_state)
 
@@ -69,16 +70,6 @@ TRAIN_FLOPS_TOL = 0.02
 V5E_RIDGE = 197e12 * 0.85 / (819e9 * 0.8)
 WRAPPERS = (flash_ops.flash_attention, moe_ops.expert_mlp, q_ops.quantize,
             wkv_ops.wkv6)
-
-
-def _sim_replay():
-    """The quickstart twin's replay (``repro.sim`` on ``v5e_pod()``)."""
-    import importlib.util
-    spec = importlib.util.spec_from_file_location("quickstart_torch",
-                                                  QUICKSTART)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.sim_replay(v5e_pod)
 
 
 # --- the interface ---------------------------------------------------------
@@ -203,18 +194,18 @@ def test_quickstart_train_step_flops_match_jax(quick_train):
 
 def test_desim_matches_jax_on_v5e(quick_train):
     prog, rep, jprog, jrep = quick_train
-    want = jf.DesimBackend(board=v5e_pod()).run(jprog, dryrun_report=jrep)
-    replay = _sim_replay()
+    want = jf.DesimBackend(board=jax_v5e_pod()).run(jprog,
+                                                    dryrun_report=jrep)
     # the same counts: the same prediction, to the simulator's 1 ns tick
     same = tf.StepReport("dryrun", prog.name, flops=jrep.flops,
                          bytes_accessed=jrep.bytes_accessed)
-    got = tf.DesimBackend(replay).run(prog, dryrun_report=same)
+    got = tf.DesimBackend(board=v5e_pod()).run(prog, dryrun_report=same)
     assert got.predicted_step_s == pytest.approx(want.predicted_step_s,
                                                  abs=1e-9)
     # its own counts: both bytes-bound, so the bytes ratio alone
     assert jrep.flops / jrep.bytes_accessed < V5E_RIDGE
     assert rep.flops / rep.bytes_accessed < V5E_RIDGE
-    own = tf.DesimBackend(replay).run(prog, dryrun_report=rep)
+    own = tf.DesimBackend(board=v5e_pod()).run(prog, dryrun_report=rep)
     assert own.predicted_step_s == pytest.approx(
         want.predicted_step_s * rep.bytes_accessed / jrep.bytes_accessed,
         abs=2e-9)
@@ -223,14 +214,21 @@ def test_desim_matches_jax_on_v5e(quick_train):
 
 
 def test_desim_runs_the_dry_run_itself_and_needs_a_replay():
+    """The backend makes the dry run itself; it needs no replay from the
+    caller (it did until the port had its own simulator): with no
+    arguments it runs on the card's default board, one H100 SXM5, where
+    the toy's one region takes its roofline time to the tick."""
     prog = tf.StepProgram("fidelity_toy", _toy_torch,
                           (TensorSpec((D, D), torch.float32),
                            TensorSpec((64, D), torch.float32)), device="cpu")
-    rep = tf.DesimBackend(_sim_replay(), record_stats=True).run(prog)
-    assert rep.flops == tf.DryRunBackend().run(prog).flops
+    rep = tf.DesimBackend(board=v5e_pod(), record_stats=True).run(prog)
+    dry = tf.DryRunBackend().run(prog)
+    assert rep.flops == dry.flops
     assert rep.predicted_step_s > 0 and rep.detail["stats"]
-    with pytest.raises(ValueError, match="replay"):
-        tf.DesimBackend().run(prog)
+    card = tf.get_backend("desim").run(prog)
+    assert card.predicted_step_s == pytest.approx(max(
+        dry.flops / (989e12 * 0.85), dry.bytes_accessed / (3.35e12 * 0.8)),
+        abs=1e-9)
 
 
 # --- the kernel path on fake CUDA tensors ----------------------------------

@@ -1,6 +1,6 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import no
-JAX and nothing of the ``repro`` package, and their entry points run on
-the GPU unless the caller asks for the CPU."""
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and the port's
+examples import no JAX and nothing of the ``repro`` package, and their
+entry points run on the GPU unless the caller asks for the CPU."""
 
 import ast
 import os
@@ -14,7 +14,9 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted(PORT.rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
+    ROOT / "examples" / "train_e2e_torch.py"]
 
 PROBE = r"""
 import importlib, importlib.util, pkgutil, sys
@@ -56,6 +58,35 @@ from repro_torch.kernels.quantize import ops
 from repro_torch.kernels.rwkv6_wkv import ops
 print("OK", sorted(n for n in sys.modules if n.startswith("repro_torch.core")))
 """
+
+
+QUICKSTART_BLOCKED = r"""
+import runpy, sys
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+            raise ImportError(f"blocked: {name}")
+sys.meta_path.insert(0, Block())
+sys.argv = sys.argv[1:]
+runpy.run_path(sys.argv[0], run_name="__main__")
+"""
+
+
+def test_quickstart_runs_with_jax_and_repro_blocked():
+    """``examples/quickstart_torch.py`` runs end to end on the port alone,
+    its simulator steps too, and predicts no TPU's time."""
+    out = subprocess.run(
+        [sys.executable, "-c", QUICKSTART_BLOCKED,
+         str(ROOT / "examples" / "quickstart_torch.py"), "--device", "cpu"],
+        capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
+             "OMP_NUM_THREADS": "1"})
+    assert out.returncode == 0, out.stderr[-3000:]
+    lines = out.stdout.strip().splitlines()
+    assert lines[-1] == "quickstart OK", out.stdout
+    assert any(ln.startswith("desim: predicted step time on one H100")
+               for ln in lines), out.stdout
+    assert "TPU" not in out.stdout
 
 
 def test_fidelity_and_kernel_ops_import_with_jax_and_repro_blocked():

@@ -14,9 +14,9 @@ and olmoe's prefill (fake CUDA tensors, the kernel path):
   ``participants``; its compute regions' flops and bytes sum to the
   report's totals; regions and collectives alternate, each op after
   the first depending on the one before;
-* replayed on ``v5e_pod()`` by the quickstart twin's replay
-  (``repro.sim``), its makespan is longer than that of the same trace
-  with its collectives taken out;
+* replayed on the port's copy of ``v5e_pod()`` (``repro_torch.sim``)
+  by ``DesimBackend``, its makespan is longer than that of the same
+  trace with its collectives taken out;
 * JAX's trace of the same cell (a subprocess compiling the JAX dry run
   for 4 host devices, as ``tests/test_torch_dryrun.py``'s smoke
   parity): ``overlap`` and ``scope`` as the port sets them, the same
@@ -33,13 +33,13 @@ import math
 import pytest
 
 import test_torch_dryrun as td
-from repro.core.desim.trace import HloTrace, TraceOp
-from repro.sim import Simulator, v5e_pod
 from repro_torch.configs import SHAPES, get_config, smoke
 from repro_torch.configs.base import ShapeConfig
+from repro_torch.core.desim.trace import HloTrace, TraceOp
 from repro_torch.core.fidelity import DesimBackend, DryRunBackend, step_trace
 from repro_torch.launch import dryrun as dr
 from repro_torch.launch.mesh import make_mesh
+from repro_torch.sim import Simulator, v5e_pod
 
 # (arch, shape name, (seq, batch)); the batch divides the 2 data ranks
 CELLS = [("stablelm-1.6b", "train_4k", (32, 8)),
@@ -111,7 +111,7 @@ def jax_traces():
 
 
 def _replay(trace):
-    """The quickstart twin's replay on ``v5e_pod()``: the makespan."""
+    """The trace's makespan on the port's ``v5e_pod()``."""
     t = HloTrace(name=trace["name"],
                  ops=[TraceOp(**op) for op in trace["ops"]])
     return Simulator(v5e_pod(), t).run_to_completion().makespan_s
@@ -189,7 +189,7 @@ def test_meshed_replay_is_longer_than_its_compute(port_traces, jax_traces,
     (all-reduce, 32896 bytes a device, measured) where XLA's module
     moves its activations by all-to-all (688128 bytes)."""
     prog, rep, trace = port_traces[arch]
-    got = DesimBackend(_replay).run(prog, dryrun_report=rep)
+    got = DesimBackend(board=v5e_pod()).run(prog, dryrun_report=rep)
     assert got.detail["trace"] == trace
     regions = [dict(o) for o in trace["ops"] if o["kind"] == "compute"]
     for j, o in enumerate(regions):
