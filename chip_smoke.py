@@ -232,11 +232,33 @@ Phases, each of which raises on failure (the script then exits non-zero):
                query rows (qwen2-vl-7b's, minicpm-2b's and whisper-small's
                context-parallel prefills), the costed rank's (the last
                rows) times those ranks are at least the global flops
+23. servesim -- serving and sampled simulation on the card's model: the
+               serve phase's batched decode step (4 slots, capacity 4096)
+               of stablelm-1.6b and olmoe-1b-7b dry-run on fake CUDA
+               tensors at full width (no launch, no device memory;
+               olmoe's moe_mlp op once a layer) and ServingCost fitted to
+               it by from_hlo_cost at the whole static cache, decode_cost
+               giving back its flops and bytes to 1e-9; ServeSim on
+               h100_card(1) with phase 5's 8 requests: the predicted ms a
+               decode step, the TPOT and the live context it charged, on
+               one line with phase 5's measured median and their ratio;
+               FleetSim on h100_fleet(6, 1) with stablelm's fit and the
+               flash crowd of examples/fleet_sim.py (420 requests,
+               least_loaded, 2-6 replicas, atomic): replicas, scale-ups
+               and downs, TTFT p50/p99, goodput, and a fresh
+               FleetController's replay of its feed equal to its decision
+               log; the SimPoint lap on phase 16's train step trace
+               chained over 20 steps, every fifth an evaluation pass
+               (stablelm's prefill trace): full detail, sampled_run with
+               the default SamplePlan, sampled_run with simpoint_plan,
+               and take_region_checkpoints, restore_fanout by two spawned
+               workers and reconstruct, each within 0.05 of full detail,
+               the fanout equal to a serial restore
 
 Every kernel's bound is its ``cost`` (flops, bytes) in its ``ops.py``, the
 definition the dry run's kernel ops are costed by.  It prints the fidelity,
-trainer, mesh and dry-run (phase 22) results and the kernel table as one
-JSON line each, then the card's name and power limit, then the result line
+trainer, mesh, dry-run (phase 22) and serving-simulation (phase 23)
+results and the kernel table as one JSON line each, then the card's name and power limit, then the result line
 {"ok": true, "device": {...}} last.
 Without a CUDA device, or without the repo's ``src/repro_torch`` beside it,
 it exits non-zero and prints no result.
@@ -438,6 +460,15 @@ WHISPER_CROSS_SHAPE = dict(b=1, s=WHISPER_PROMPT, s_kv=1500, h=12, d=64,
 # the model phase: as stablelm's, the two paths differ only in the order
 # of f32 sums inside attention; 24 layers spread the one-ulp flips
 WHISPER_LOGIT_RTOL = 0.05
+# serving and sampled simulation on the card's model (phase 23): the
+# SimPoint lap chains the train step's desim trace over SIMPOINT_STEPS
+# steps, every SIMPOINT_EVAL_EVERY-th an evaluation pass (a prefill), so
+# that SimPoint finds two phases and the fanout restores two regions in
+# two workers; windows of SIMPOINT_WINDOW steps; a sampled run lands
+# within SAMPLED_BOUND of full detail, the reference's own bound
+# (tests/test_sampling.py, tests/test_simpoint.py)
+SIMPOINT_STEPS, SIMPOINT_WINDOW, SIMPOINT_EVAL_EVERY = 20, 2, 5
+SAMPLED_BOUND = 0.05
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1045,7 +1076,8 @@ def phase_serve(torch, np, cfg, model, params, counters, seed: int,
     other kernel runs in a decode step.  A VLM's requests carry their
     vision prefix (``extras``), an encoder-decoder's its frames; each
     merged prompt with its new tokens fits the capacity ``cap``: no KV
-    ring wraps."""
+    ring wraps.  Returns the launches, the prompt lengths and the decode
+    steps' median ms."""
     from repro_torch.serve import BatchServer, Request
     rng = np.random.default_rng(seed)
     lens = serve_lengths(rng, lens_range)
@@ -1117,7 +1149,7 @@ def phase_serve(torch, np, cfg, model, params, counters, seed: int,
           f"in decode steps {in_decode}; peak "
           f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
           f"GiB [{card}]")
-    return launches, [int(n) for n in lens]
+    return launches, [int(n) for n in lens], float(np.median(dec))
 
 
 def phase_timing(torch, ops, shape):
@@ -2323,6 +2355,208 @@ def phase_fidelity_desim(measured: dict, reps: dict, card: str) -> dict:
     return out
 
 
+def phase_serving_sim(torch, counters, served: dict, train_trace: dict,
+                      eval_trace: dict, card: str) -> dict:
+    """23. Serving and sampled simulation on the card's model.
+
+    (a) The batched decode step of phase 5's server (SERVE_SLOTS slots,
+    SERVE_CAP capacity) of stablelm-1.6b and olmoe-1b-7b dry-run on fake
+    CUDA tensors at full width (no launch, no device memory; olmoe's
+    moe_mlp op once a MoE layer) and ``ServingCost.from_hlo_cost`` fitted
+    to it at the whole static cache, ``decode_cost`` giving back the dry
+    run's flops and bytes; (b) ``ServeSim`` on ``h100_card(1)`` with
+    phase 5's requests (``served``: arch -> its lengths and its decode
+    steps' median ms): the predicted ms a decode step, the TPOT and the
+    live context it charged beside the measured median; (c) ``FleetSim``
+    on ``h100_fleet(6, 1)`` with stablelm's fit and the flash crowd of
+    ``examples/fleet_sim.py``, its feed replayed through a fresh
+    ``FleetController`` to the same decision log; (d) the SimPoint lap
+    on phase 16's train step trace chained over SIMPOINT_STEPS steps,
+    every SIMPOINT_EVAL_EVERY-th of them an evaluation pass (phase 16's
+    stablelm-1.6b prefill trace): full detail, a fixed-stride
+    ``sampled_run``, the SimPoint plan's ``sampled_run`` (two phases, two
+    regions), and its region checkpoints restored by two spawned workers,
+    each within SAMPLED_BOUND of full detail, the fanout equal to a
+    serial restore.  No bound on a predicted/measured ratio."""
+    import statistics
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.desim.simnodes import to_ticks
+    from repro_torch.core.desim.trace import HloTrace, TraceOp
+    from repro_torch.launch.dryrun import decode_serving_cost
+    from repro_torch.serve import FleetController, FleetPolicy
+    from repro_torch.sim import (FleetSim, SamplePlan, ServeSim, Simulator,
+                                 chain_steps, flash_crowd_requests,
+                                 h100_card, h100_fleet, reconstruct,
+                                 record_op_stream, restore_fanout,
+                                 sampled_run, simpoint_plan,
+                                 take_region_checkpoints, trace_requests)
+    out = {"serve": {}}
+    costs = {}
+    ctx = SERVE_SLOTS * SERVE_CAP
+    for arch in (ARCH, MOE_ARCH):
+        cfg = get_config(arch)
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        n0 = {n: w.launches for n, w in counters.items()}
+        cost, rep, weight_bytes = decode_serving_cost(cfg, SERVE_SLOTS,
+                                                      SERVE_CAP, "cuda")
+        torch.cuda.synchronize()
+        launched = {n: w.launches - n0[n] for n, w in counters.items()}
+        check(not any(launched.values()),
+              f"decode dry run {arch} launched kernels: {launched}")
+        check(torch.cuda.memory_allocated() == mem0,
+              f"decode dry run {arch} allocated device memory")
+        _, n_moe = layer_plan(cfg)
+        want = {"expert_mlp": n_moe} if n_moe else {}
+        check(rep.detail["kernels"] == want,
+              f"decode dry run {arch}: kernel ops {rep.detail['kernels']}, "
+              f"want {want}")
+        flops, nbytes = cost.decode_cost(SERVE_SLOTS, ctx)
+        check(abs(flops / rep.flops - 1) <= 1e-9
+              and abs(nbytes / rep.bytes_accessed - 1) <= 1e-9,
+              f"decode fit {arch}: decode_cost gives {flops}, {nbytes}, the "
+              f"dry run {rep.flops}, {rep.bytes_accessed}")
+        costs[arch] = cost
+
+        def serve_sim():
+            return ServeSim(cost=cost, requests=trace_requests(
+                [(0.0, n, SERVE_NEW) for n in served[arch]["lens"]]),
+                slots=SERVE_SLOTS, seq_capacity=SERVE_CAP)
+        t0 = time.perf_counter()
+        srv = serve_sim()
+        sim = Simulator(h100_card(1), srv, record_timeline=True)
+        for _ in sim.run():
+            pass
+        host_s = time.perf_counter() - t0
+        s = srv.summary()
+        check(s["requests"] == len(served[arch]["lens"]),
+              f"ServeSim {arch}: {s['requests']} requests finished")
+        steps = [e["end"] - e["start"] for e in sim.result().timeline
+                 if "/decode/" in e["op"]]
+        pred_ms = statistics.fmean(steps) * 1e3
+        # the live context each decode step was charged, from its bytes
+        decodes = [op for op in record_op_stream(h100_card(1),
+                                                 serve_sim()).ops
+                   if "/decode/" in op.name]
+        live = statistics.fmean(
+            (op.bytes - cost.weight_bytes) / cost.kv_bytes_per_token
+            - op.flops / cost.flops_per_token for op in decodes)
+        meas_ms = served[arch]["decode_ms"]
+        out["serve"][arch] = dict(
+            flops=rep.flops, bytes=rep.bytes_accessed,
+            weight_bytes=weight_bytes,
+            flops_per_token=cost.flops_per_token,
+            kv_bytes_per_token=cost.kv_bytes_per_token, fit_context=ctx,
+            mean_live_context=live, kernels=want,
+            decode_steps=len(steps), predicted_decode_ms=pred_ms,
+            tpot_ms=s["mean_tpot_s"] * 1e3, measured_decode_ms=meas_ms,
+            ratio=pred_ms / meas_ms, dryrun_host_s=rep.wall_s,
+            sim_host_s=host_s)
+        print(f"servesim {arch}: decode dry run {rep.flops / 1e12:.4f} "
+              f"TFLOP, {rep.bytes_accessed / 1e9:.3f} GB (weights "
+              f"{weight_bytes / 1e9:.3f} GB), kernel ops {want}; fit at "
+              f"{ctx} context tokens: {cost.flops_per_token / 1e9:.4f} "
+              f"GFLOP/token, {cost.kv_bytes_per_token / 1e3:.3f} kB/context "
+              f"token; ServeSim on h100_card(1) charged "
+              f"{live:.1f} live context tokens a step")
+        print(f"servesim {arch}: predicted {pred_ms:.3f} ms/decode step "
+              f"over {len(steps)} steps, TPOT {s['mean_tpot_s'] * 1e3:.3f} "
+              f"ms, measured median {meas_ms:.3f} ms/decode step, "
+              f"predicted/measured {pred_ms / meas_ms:.4f} [{card}]")
+
+    # (c) the fleet of cards
+    def policy():
+        return FleetPolicy("least_loaded", min_replicas=2, max_replicas=6,
+                           slots_per_replica=8,
+                           cold_start_ticks=to_ticks(1.0),
+                           control_period_ticks=to_ticks(0.5), seed=7)
+    requests = flash_crowd_requests(420, seed=7, base_rps=15.0,
+                                    crowd_rps=90.0, crowd_start_s=2.0,
+                                    crowd_len_s=3.0, prefix_groups=8)
+    t0 = time.perf_counter()
+    fleet = FleetSim(cost=costs[ARCH], requests=requests, policy=policy(),
+                     seq_capacity=1024, slo_ttft_s=0.6, slo_latency_s=4.0,
+                     tenant_slo={"batch": 4.0})
+    for _ in Simulator(h100_fleet(6, 1), fleet, timing="atomic").run():
+        pass
+    host_s = time.perf_counter() - t0
+    s = fleet.summary()
+    check(s["requests"] == len(requests),
+          f"FleetSim: {s['requests']} of {len(requests)} requests finished")
+    ctl = FleetController(policy())
+    ctl.replay(fleet.feed, requests)
+    check(ctl.policy.decisions == fleet.policy.decisions,
+          "FleetController's replay of the feed differs from FleetSim's "
+          "decision log")
+    out["fleet"] = dict(
+        requests=s["requests"], replicas_peak=s["replicas_peak"],
+        scale_ups=s["scale_ups"], scale_downs=s["scale_downs"],
+        p50_ttft_ms=s["p50_ttft_s"] * 1e3, p99_ttft_ms=s["p99_ttft_s"] * 1e3,
+        goodput_rps=s["goodput_rps"], throughput_rps=s["throughput_rps"],
+        decisions=len(fleet.policy.decisions), host_s=host_s)
+    print(f"fleetsim {ARCH} on h100_fleet(6, 1): {int(s['requests'])} "
+          f"requests, replicas peak {int(s['replicas_peak'])} "
+          f"({int(s['scale_ups'])} up / {int(s['scale_downs'])} down), TTFT "
+          f"p50/p99 {s['p50_ttft_s'] * 1e3:.2f} / "
+          f"{s['p99_ttft_s'] * 1e3:.2f} ms, goodput "
+          f"{s['goodput_rps']:.2f} rps; controller replay "
+          f"{len(ctl.policy.decisions)} decisions, identical; "
+          f"{host_s:.2f} s on the host [{card}]")
+
+    # (d) the SimPoint lap on the train step's trace with evaluations
+    train, evaluate = (HloTrace(tr["name"], [TraceOp(**op)
+                                             for op in tr["ops"]])
+                       for tr in (train_trace, eval_trace))
+    chained = chain_steps(
+        [evaluate if (i + 1) % SIMPOINT_EVAL_EVERY == 0 else train
+         for i in range(SIMPOINT_STEPS)], name="train+eval")
+    runs = {}
+    t0 = time.perf_counter()
+    full = h100_card().executor(timing="detailed").execute(chained)
+    runs["full detail"] = (full.makespan_s, time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    stride = sampled_run(h100_card(), chained, SIMPOINT_STEPS, SamplePlan())
+    runs["sampled_run SamplePlan()"] = (stride.predicted_total_s,
+                                        time.perf_counter() - t0)
+    plan = simpoint_plan(chained, window=SIMPOINT_WINDOW, seed=0)
+    check(len(plan.representatives) >= 2,
+          f"simpoint: {plan.representatives} represent the train and "
+          "evaluation phases")
+    t0 = time.perf_counter()
+    sp = sampled_run(h100_card(), chained, SIMPOINT_STEPS, plan)
+    runs["sampled_run simpoint_plan"] = (sp.weighted_total_s,
+                                         time.perf_counter() - t0)
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        lib = take_region_checkpoints(h100_card(), chained, plan,
+                                      str(Path(root) / "lib"))
+        # spawn, not the default fork: this process holds a CUDA context
+        # and torch's threads, and a forked child of it can deadlock; the
+        # workers read plain checkpoint data and touch no CUDA
+        fanned = restore_fanout(lib, workers=2, mp_context="spawn")
+        runs["restore_fanout(workers=2, spawn)"] = (
+            reconstruct(fanned, lib=lib), time.perf_counter() - t0)
+        serial = restore_fanout(lib, workers=1)
+    check(fanned == serial, "the spawned fanout differs from a serial "
+                            "restore")
+    out["simpoint"] = {"steps": SIMPOINT_STEPS, "window": SIMPOINT_WINDOW,
+                       "representatives": plan.representatives,
+                       "weights": plan.weights, "runs": {}}
+    for name, (total, host) in runs.items():
+        err = abs(total - full.makespan_s) / full.makespan_s
+        out["simpoint"]["runs"][name] = dict(total_s=total, rel_err=err,
+                                             host_s=host)
+        print(f"simpoint {name}: {total * 1e3:.3f} ms over "
+              f"{SIMPOINT_STEPS} steps (train and evaluation), relative "
+              f"error {err:.3e}, "
+              f"{host:.3f} s on the host [{card}]")
+        check(err <= SAMPLED_BOUND, f"simpoint {name}: relative error "
+                                    f"{err} over {SAMPLED_BOUND}")
+    return out
+
+
 def _param_specs(prog):
     """The params of a prefill program's inputs, or of a train state's."""
     first = prog.input_specs[0]
@@ -2422,8 +2656,9 @@ def main() -> int:
                 LOGIT_RTOL)
 
     # 5. serve: the main path, launches counted around it alone
-    dense_launches, lens = phase_serve(torch, np, cfg, model, params,
-                                       counters, args.seed, card)
+    dense_launches, lens, dense_dec = phase_serve(
+        torch, np, cfg, model, params, counters, args.seed, card)
+    served = {ARCH: {"lens": lens, "decode_ms": dense_dec}}
 
     # 6. times at the main path's shape, then at each served length
     t = phase_timing(torch, ops, MAIN_SHAPE)
@@ -2453,8 +2688,9 @@ def main() -> int:
     phase_model(torch, np, mcfg, mmodel, mparams, args.seed,
                 [(moe, "expert_mlp", moe_ops.expert_mlp_plain)],
                 MOE_LOGIT_RTOL)
-    moe_launches, _ = phase_serve(torch, np, mcfg, mmodel, mparams, counters,
-                                  args.seed, card)
+    moe_launches, moe_lens, moe_dec = phase_serve(
+        torch, np, mcfg, mmodel, mparams, counters, args.seed, card)
+    served[MOE_ARCH] = {"lens": moe_lens, "decode_ms": moe_dec}
     t_olmoe = phase_timing(torch, ops, MOE_ATTN_SHAPE)
     tm = phase_moe_timing(torch, moe_ops, MOE_PREFILL, "prefill", card)
     td = phase_moe_timing(torch, moe_ops, MOE_DECODE, "decode", card)
@@ -2507,8 +2743,8 @@ def main() -> int:
                 [(rw, "wkv6_state", chunked)], RWKV_LOGIT_RTOL)
     phase_rwkv_handoff(torch, np, rcfg, rmodel, rparams, args.seed, w_ops,
                        card)
-    rwkv_launches, rlens = phase_serve(torch, np, rcfg, rmodel, rparams,
-                                       counters, args.seed, card)
+    rwkv_launches, rlens, _ = phase_serve(torch, np, rcfg, rmodel, rparams,
+                                          counters, args.seed, card)
     tw = phase_wkv_timing(torch, w_ops, rw, card)
     phase_wkv_lengths(torch, w_ops, rlens, rcfg.n_layers, card)
     phase_profile(torch, np, rcfg, rmodel, rparams, args.seed, card)
@@ -2525,11 +2761,16 @@ def main() -> int:
     dryruns, dry_reps = phase_fidelity_dryruns(torch, counters, args.seed,
                                                card)
     prefill = f"prefill b={FIDELITY_B} s={FIDELITY_S}"
+    train_label = f"{ARCH} train step b={TRAIN_BATCH} s={TRAIN_SEQ} " \
+                  "grad_compress"
     desim = phase_fidelity_desim(
         {f"{ARCH} {prefill}": native[f"{ARCH} prefill"],
          f"{MOE_ARCH} {prefill}": native[f"{MOE_ARCH} prefill"],
-         f"{ARCH} train step b={TRAIN_BATCH} s={TRAIN_SEQ} grad_compress":
-             step_ms}, dry_reps, card)
+         train_label: step_ms}, dry_reps, card)
+    from repro_torch.core.fidelity import step_trace
+    train_trace = step_trace(train_label, dry_reps[train_label][1])
+    eval_trace = step_trace(f"{ARCH} {prefill}",
+                            dry_reps[f"{ARCH} {prefill}"][1])
     del dry_reps
     print(json.dumps({"fidelity": {
         "native_ms": native, "dryrun": dryruns, "desim": desim,
@@ -2575,6 +2816,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     dryrun_launches, dryrun = phase_dryrun(torch, counters, args.seed, card)
     print(json.dumps({"dryrun": dryrun}))
+
+    # 23. serving and sampled simulation on the card's model
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(json.dumps({"serving_sim": phase_serving_sim(
+        torch, counters, served, train_trace, eval_trace, card)}))
 
     by_path = {ARCH: dense_launches, MOE_ARCH: moe_launches,
                f"{ARCH} train": train_launches,
@@ -2686,8 +2933,8 @@ def phase_jamba(torch, np, counters, seed: int, card: str):
                  (moe, "expert_mlp", moe_ops.expert_mlp_plain)],
                 JAMBA_LOGIT_RTOL)
     phase_jamba_handoff(torch, np, cfg, params, seed, counters, card)
-    launches, _ = phase_serve(torch, np, cfg, model, params, counters, seed,
-                              card)
+    launches, _, _ = phase_serve(torch, np, cfg, model, params, counters,
+                                 seed, card)
     t_flash = phase_timing(torch, ops, JAMBA_ATTN_SHAPE)
     t_decode = phase_moe_timing(torch, moe_ops, JAMBA_MOE_DECODE,
                                 f"{JAMBA_ARCH} decode", card)
@@ -2728,8 +2975,8 @@ def phase_qwen2_vl(torch, np, counters, seed: int, card: str):
     phase_model(torch, np, cfg, model, params, seed,
                 [(layers, "flash_attention", ops.flash_attention_plain)],
                 VLM_LOGIT_RTOL)
-    launches, _ = phase_serve(torch, np, cfg, model, params, counters, seed,
-                              card)
+    launches, _, _ = phase_serve(torch, np, cfg, model, params, counters,
+                                 seed, card)
     t_flash = phase_timing(torch, ops, VLM_ATTN_SHAPE)
     t_flash["prefix"] = phase_prefix_timing(torch, ops, cfg.n_vis, card)
     phase_profile(torch, np, cfg, model, params, seed, card)
@@ -2767,8 +3014,8 @@ def phase_whisper(torch, np, counters, seed: int, card: str):
     phase_model(torch, np, cfg, model, params, seed,
                 [(layers, "flash_attention", ops.flash_attention_plain)],
                 WHISPER_LOGIT_RTOL, prompt_len=WHISPER_PROMPT)
-    launches, _ = phase_serve(torch, np, cfg, model, params, counters, seed,
-                              card, WHISPER_LENS, WHISPER_CAP)
+    launches, _, _ = phase_serve(torch, np, cfg, model, params, counters,
+                                 seed, card, WHISPER_LENS, WHISPER_CAP)
     times = {"encoder": phase_timing(torch, ops, WHISPER_ENC_SHAPE),
              "cross": phase_timing(torch, ops, WHISPER_CROSS_SHAPE)}
     phase_profile(torch, np, cfg, model, params, seed, card,

@@ -287,6 +287,38 @@ def build_program(arch: str, shape_name: str, mesh, opts=None,
     return prog, rules, opts
 
 
+def decode_serving_cost(cfg: ArchConfig, slots: int, seq_capacity: int,
+                        device=None):
+    """The batched decode step of ``BatchServer(slots=, seq_capacity=)``
+    dry-run on fake tensors (bf16 params, the server's cache and per-slot
+    ``cur_len``) and the ``sim.ServingCost`` fitted to it by
+    ``ServingCost.from_hlo_cost``: the flops a slot, the params' bytes as
+    the resident weights, the rest of the step's bytes spread over the
+    whole cache (``slots * seq_capacity`` tokens: the decode step reads
+    every slot's cache to its capacity, whatever its live context).
+    Returns ``(cost, report, weight_bytes)``."""
+    from types import SimpleNamespace
+
+    from repro_torch.models.common import TensorSpec
+    from repro_torch.sim.workloads import ServingCost
+    model = build_model(cfg)
+    params = _cast_floats(model.param_specs()[0], torch.bfloat16)
+    batch = {"tokens": TensorSpec((slots, 1), torch.int64),
+             "cache": model.cache_spec(slots, seq_capacity),
+             "cur_len": TensorSpec((slots,), torch.int64)}
+    prog = StepProgram(f"{cfg.name} decode slots={slots} cap={seq_capacity}",
+                       build_decode_step(model), (params, batch),
+                       device=device)
+    rep = DryRunBackend().run(prog)
+    weight_bytes = float(sum(math.prod(s.shape) * s.dtype.itemsize
+                             for _, s in leaves_with_path(params)))
+    cost = ServingCost.from_hlo_cost(
+        SimpleNamespace(flops=rep.flops, bytes=rep.bytes_accessed),
+        batch=slots, context_tokens=slots * seq_capacity,
+        weight_bytes=weight_bytes)
+    return cost, rep, weight_bytes
+
+
 def dryrun_cell(arch: str, shape_name: str, multi_pod: bool = False,
                 opts: Optional[TrainOptions] = None,
                 rules_override: Optional[Dict] = None,

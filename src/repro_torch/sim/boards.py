@@ -25,6 +25,8 @@ Catalog:
 * ``h100_card``     — ``n`` NVIDIA H100 SXM5 cards joined by NVLink (one
                       by default), collectives on the ring algorithm:
                       the simulator has no NVSwitch topology.
+* ``h100_fleet``    — ``max_replicas`` serving replicas of ``n`` cards
+                      each, the card's counterpart of ``v5e_fleet``.
 * ``v5e_pod``, ``v5e_multipod``, ``v5e_straggler``, ``v5e_degraded``,
   ``v5e_serving``, ``v5e_fleet``, ``v5e_fleet_big``, ``v5e_unreliable``
                     — the reference's boards, built bit for bit.
@@ -131,6 +133,18 @@ def h100_card(n: int = 1, *, chip: Optional[Dict] = None) -> Board:
     NVLink bandwidth a direction."""
     m = _cluster("cluster", 1, None, n, 1, chip, None, None)
     return Board(m, algorithm="ring", name=f"h100_card_{n}")
+
+
+def h100_fleet(max_replicas: int = 8, n: int = 1, *,
+               chip: Optional[Dict] = None,
+               timing: str = "detailed") -> Board:
+    """Autoscaled serving fleet of cards: ``max_replicas`` independent
+    pods of ``n`` H100 SXM5 cards each (a ring on NVLink, as
+    ``h100_card``), one per replica ``FleetSim``'s policy may bring up.
+    Quantum 0: replicas never speak to each other."""
+    m = _cluster("cluster", max_replicas, 0, n, 1, chip, None, None)
+    return Board(m, algorithm="ring", timing=timing,
+                 name=f"h100_fleet_{max_replicas}x{n}")
 
 
 def v5e_pod(nx: int = 16, ny: int = 16, *, chip: Optional[Dict] = None,
@@ -252,6 +266,7 @@ def v5e_unreliable(num_pods: int = 4, *, seed: int = 0,
 
 BOARDS: Dict[str, Callable[..., Board]] = {
     "h100_card": h100_card,
+    "h100_fleet": h100_fleet,
     "v5e_pod": v5e_pod,
     "v5e_multipod": v5e_multipod,
     "v5e_straggler": v5e_straggler,

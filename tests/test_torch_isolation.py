@@ -14,9 +14,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
-    ROOT / "examples" / "train_e2e_torch.py"]
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + sorted(
+    (ROOT / "examples").glob("*_torch.py"))
 
 PROBE = r"""
 import importlib, importlib.util, pkgutil, sys

@@ -4,9 +4,12 @@ against the reference it was copied from (``repro.core.desim``,
 
 * Each copied module's source equals its original below the module
   docstring, import lines renamed, but in ``MAY_DIFFER``: the machine
-  (the card's defaults and catalog), the boards (``h100_card``; the
-  ``v5e_*`` boards on the reference's catalog), the trace (no HLO
-  parsers) and the two package ``__init__``s.
+  (the card's defaults and catalog), the boards (``h100_card``,
+  ``h100_fleet``; the ``v5e_*`` boards on the reference's catalog), the
+  trace (no HLO parsers) and the two package ``__init__``s.  The fleet,
+  sampling, SimPoint and checkpoint-library modules and the fleet's
+  control plane (``serve/fleet.py``, ``serve/fleet_policy.py``) are
+  copies too; only XLA's HLO cost model is not copied.
 * The five golden runs of ``tests/test_golden_stats.py``, built from
   the port's copies, render ``tests/golden/*.txt`` line for line.
 * ``DesimBackend(board=v5e_pod(), record_stats=True)`` equals JAX's to
@@ -60,12 +63,14 @@ COPIES = ["core/events.py", "core/ports.py", "core/trace.py",
           "core/desim/executor.py", "core/desim/parallel.py",
           "sim/__init__.py", "sim/boards.py", "sim/instrument.py",
           "sim/workloads.py", "sim/serialize.py", "sim/simulator.py",
-          "sim/parallel.py"]
+          "sim/parallel.py", "sim/fleet.py", "sim/sampling.py",
+          "sim/fingerprint.py", "sim/ckptlib.py", "serve/fleet.py",
+          "serve/fleet_policy.py"]
 MAY_DIFFER = ["core/desim/machine.py", "sim/boards.py", "core/desim/trace.py",
               "core/desim/__init__.py", "sim/__init__.py"]
-NOT_COPIED = ["core/desim/hlo_cost.py", "sim/fleet.py", "sim/sampling.py",
-              "sim/fingerprint.py", "sim/ckptlib.py", "serve/fleet.py",
-              "serve/fleet_policy.py"]
+# XLA's HLO text cost model: the port has no HLO, and its dry run costs a
+# step's ops with core/op_cost.py instead
+NOT_COPIED = ["core/desim/hlo_cost.py"]
 
 
 @pytest.mark.parametrize("rel", [r for r in COPIES if r not in MAY_DIFFER])
@@ -82,6 +87,18 @@ def test_listed_copies_exist_and_the_rest_are_not_copied():
     assert all((port / r).is_file() for r in COPIES)
     assert not any((port / r).exists() for r in NOT_COPIED)
     assert set(MAY_DIFFER) <= set(COPIES)
+
+
+def test_sim_exports_every_name_of_the_reference():
+    """``repro_torch.sim`` exports every name of ``repro.sim.__all__``,
+    plus the card's boards; ``repro_torch.serve`` the fleet's control
+    plane beside the server."""
+    import repro.serve as jserve
+    import repro.sim as jsim
+    from repro_torch import serve as pserve
+    assert set(ps.__all__) == set(jsim.__all__) | {"h100_card", "h100_fleet"}
+    assert all(hasattr(ps, n) for n in ps.__all__)
+    assert set(jserve.__all__) <= set(dir(pserve))
 
 
 # --- the goldens --------------------------------------------------------
