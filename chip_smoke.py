@@ -208,8 +208,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
                max_memory_allocated (within DRYRUN_PEAK_BOUND) and its ms
                printed; (b) production
                cells under PyTorch's fake process group on fake CUDA
-               tensors, on the (16, 16) mesh (stablelm-1.6b and
-               minicpm-2b train_4k, olmoe-1b-7b prefill_32k, deepseek-67b
+               tensors, on the (16, 16) mesh (stablelm-1.6b, minicpm-2b
+               and olmoe-1b-7b train_4k, olmoe-1b-7b prefill_32k, deepseek-67b
                prefill_32k and decode_32k, olmoe-1b-7b decode_32k: its
                cache's layers split over "data", moved a layer at a time,
                qwen2-vl-7b, minicpm-2b and
@@ -217,16 +217,20 @@ Phases, each of which raises on failure (the script then exits non-zero):
                mixtral-8x22b decode_32k: its experts' d_ff split) and the
                (2, 16, 16) one (olmoe-1b-7b prefill_32k): each ok, one JSON
                line each (per-device GB, fits_hbm, the dominant roofline
-               term and bound, useful flops, collective bytes by kind,
-               kernel ops, host seconds, the largest ops by bytes, the
-               count of its desim trace's ops), each
+               term and bound, useful flops, collective bytes by kind
+               and each kind's largest operand, kernel ops, host seconds,
+               the largest ops by bytes, the count of its desim trace's
+               ops), each
                costed as the last rank along "model"; each cell's desim
                trace (core.fidelity.step_trace) holds its collectives,
                their count and bytes by kind those of the dry run; a
                decode cell returns its cache argument; no cell replicates
                a kernel or moves a stacked layer leaf whole, and no train
                cell whose rules split the vocab has an op of the whole
-               vocab among its largest; where the rules split the heads,
+               vocab among its largest, and no MoE train cell whose rules
+               split the experts all-reduces its whole capacity blocks
+               (G, E, C, D) (olmoe-1b-7b's down projection runs on each
+               rank's experts); where the rules split the heads,
                the per-device flash flops times the ranks that split them
                equal the global flash flops, and where they split the
                query rows (qwen2-vl-7b's, minicpm-2b's and whisper-small's
@@ -432,6 +436,7 @@ DRYRUN_PEAK_BOUND = (0.9, 1.1)
 DRYRUN_LOSS = ("stablelm-1.6b", 4, 4096)
 DRYRUN_CELLS = [(False, [("stablelm-1.6b", "train_4k"),
                          ("minicpm-2b", "train_4k"),
+                         ("olmoe-1b-7b", "train_4k"),
                          ("olmoe-1b-7b", "prefill_32k"),
                          ("deepseek-67b", "prefill_32k"),
                          ("deepseek-67b", "decode_32k"),
@@ -3687,6 +3692,12 @@ def _dryrun_production(torch, dr, arch: str, name: str, multi: bool,
                  if f", {padded_vocab(cfg)})" in n]
         check(not whole, f"dry run {arch} {name}: ops of the whole vocab "
                          f"on a rank whose logits split it: {whole}")
+    if shape.kind == "train" and cfg.n_experts and rules.size("experts") > 1:
+        reduced = res["largest_collectives"].get("all-reduce")
+        blocks = _capacity_blocks(cfg, shape)
+        check(reduced is None or tuple(reduced["shape"][1:]) != blocks,
+              f"dry run {arch} {name}: an all-reduce of the whole capacity "
+              f"blocks {reduced}")
     mem = res["memory"]
     line = {"arch": arch, "shape": name,
             "mesh": "multi" if multi else "single",
@@ -3697,6 +3708,7 @@ def _dryrun_production(torch, dr, arch: str, name: str, multi: bool,
             "useful_flops_ratio": res["useful_flops_ratio"],
             "collective_bytes": {k: v["bytes"]
                                  for k, v in res["collectives"].items()},
+            "largest_collectives": res["largest_collectives"],
             "kernels": res["kernels"], "trace_s": res["trace_s"],
             "trace_ops": res["trace_ops"],
             "replicated_kernels": res["replicated_kernels"],
@@ -3706,6 +3718,18 @@ def _dryrun_production(torch, dr, arch: str, name: str, multi: bool,
             "top_bytes": res["top_bytes"][:3], "card": card}
     print(json.dumps({"dryrun_cell": line}))
     return line
+
+
+def _capacity_blocks(cfg, shape) -> tuple:
+    """(E, C, D) of a MoE layer's capacity blocks at ``shape``'s
+    sequence, as ``models.moe.apply_moe`` sizes them."""
+    import math
+    from repro_torch.models.moe import MAX_GROUP_TOKENS
+    s = shape.seq_len
+    sub = max(1, s // MAX_GROUP_TOKENS) if s % MAX_GROUP_TOKENS == 0 else 1
+    t, k, e = s // sub, cfg.top_k, cfg.n_experts
+    c = min(max(1, math.ceil(k * t * cfg.capacity_factor / e)), t * k)
+    return (e, c, cfg.d_model)
 
 
 def _leaves(tree):

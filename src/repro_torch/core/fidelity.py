@@ -188,10 +188,10 @@ class DryRunBackend(Backend):
     ``detail["kernels"]`` counts each kernel's calls;
     ``detail["unknown_ops"]`` the calls of ops that ``op_cost`` has no
     flops rule for (costed at 0 flops and their bytes);
-    ``detail["collectives"]``, ``["copy_bytes"]``, ``["moves"]``,
-    ``["top_dots"]``, ``["top_bytes"]`` and ``["stream_collectives"]``
-    are ``CostMode``'s, and ``["replicated_kernels"]`` its
-    ``replicated``.
+    ``detail["collectives"]``, ``["largest_collectives"]``,
+    ``["copy_bytes"]``, ``["moves"]``, ``["top_dots"]``, ``["top_bytes"]``
+    and ``["stream_collectives"]`` are ``CostMode``'s, and
+    ``["replicated_kernels"]`` its ``replicated``.
 
     The step may not read a value back to the host (``.item()``,
     ``int(tensor)``): a fake tensor has none.  The train and prefill
@@ -233,6 +233,7 @@ class DryRunBackend(Backend):
         rep.detail["kernels"] = dict(cost.kernels)
         rep.detail["unknown_ops"] = dict(cost.unknown)
         rep.detail["collectives"] = cost.collectives
+        rep.detail["largest_collectives"] = cost.largest_collectives
         rep.detail["copy_bytes"] = cost.copy_bytes
         rep.detail["top_dots"] = cost.top_dots
         rep.detail["top_bytes"] = cost.top_bytes

@@ -247,7 +247,9 @@ class CostMode(TorchDispatchMode):
     Ops on DTensors are left to DTensor (``NotImplemented``), which then
     dispatches its local ops, costed here at the local shapes.
     ``collectives`` sums the functional collectives by kind (``count``,
-    ``bytes``: operand bytes per device, ``group_sizes``);
+    ``bytes``: operand bytes per device, ``group_sizes``), and
+    ``largest_collectives`` by kind the one with the largest operand
+    (its ``shape``, ``dtype`` and ``bytes`` a device);
     ``copy_bytes`` the bytes of the copy ops (``copy_``, ``_to_copy``,
     ``clone``, ``cat``); ``top_dots`` and ``top_bytes`` are the largest
     dots by flops and ops by bytes, ``(value, "op [local shapes]")``;
@@ -277,6 +279,7 @@ class CostMode(TorchDispatchMode):
         self.kernels: Counter = Counter()
         self.unknown: Counter = Counter()
         self.collectives: Dict[str, Dict] = {}
+        self.largest_collectives: Dict[str, Dict] = {}
         self.copy_bytes = 0.0
         self.top_dots: List[Tuple[float, str]] = []
         self.top_bytes: List[Tuple[float, str]] = []
@@ -452,8 +455,15 @@ class CostMode(TorchDispatchMode):
             if kind is not None:
                 c = self.collectives.setdefault(
                     kind, {"count": 0, "bytes": 0.0, "group_sizes": []})
-                operand = sum(_nbytes(t) for t in _tensors(args[:1]))
+                first = _tensors(args[:1])
+                operand = sum(_nbytes(t) for t in first)
                 n = group_size(func, args, kwargs)
+                big = self.largest_collectives.get(kind)
+                if first and (big is None or operand > big["bytes"]):
+                    self.largest_collectives[kind] = {
+                        "shape": list(first[0].shape),
+                        "dtype": str(first[0].dtype).replace("torch.", ""),
+                        "bytes": operand}
                 c["count"] += 1
                 c["bytes"] += operand
                 if n not in c["group_sizes"]:

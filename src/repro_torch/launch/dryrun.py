@@ -47,7 +47,9 @@ of a stacked layer leaf that the cell's layout splits: a gradient of
 such a leaf reduced or rebuilt whole; ``stacked_moves_of``),
 ``trace_ops`` and ``trace_collectives`` (the count of the ops of the
 step's desim trace, ``core.fidelity.step_trace``, and its collective
-ops' count and bytes by kind, which equal ``collectives``), and
+ops' count and bytes by kind, which equal ``collectives``),
+``largest_collectives`` (by kind, the collective with the largest
+operand: its ``shape``, ``dtype`` and ``bytes`` a device), and
 ``replicated_kernels``: by kernel, the calls of the costed stream that
 ran with an argument gathered over a mesh dim that the cell's layout
 split it over (the kernel's strategy had no layout for that split, so
@@ -357,6 +359,7 @@ def dryrun_cell(arch: str, shape_name: str, multi_pod: bool = False,
         "xla_cost_analysis": None,
         "roofline": roofline_terms(rep, n_dev),
         "collectives": rep.detail["collectives"],
+        "largest_collectives": rep.detail["largest_collectives"],
         "model_flops_global": mflops,
         "hlo_flops_global": hlo_flops_global,
         "useful_flops_ratio": (mflops / hlo_flops_global

@@ -31,7 +31,7 @@ non-causal over ``enc_seq`` keys in its cross attention.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -98,21 +98,26 @@ def _enc_layer(lp: Dict, x: torch.Tensor, cfg, positions, mode: str,
 
 
 def encode(params: Dict, enc_embeds: torch.Tensor, cfg, mode: str = "prefill",
-           chunk: int = 2048, sharder: Sharder = IDENTITY_SHARDER
-           ) -> torch.Tensor:
+           chunk: int = 2048, sharder: Sharder = IDENTITY_SHARDER,
+           dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """enc_embeds (b, enc_seq, d), the stub frontend's output, in the
-    params' dtype -> the encoder output (b, enc_seq, d)."""
-    x = sharder.ac(enc_embeds + params["enc_pos"], ("batch", "seq", None))
+    params' dtype -> the encoder output (b, enc_seq, d).  ``dtype``
+    casts each leaf where it is used, a layer's as the loop reaches
+    it."""
+    x = sharder.ac(enc_embeds + cast(params["enc_pos"], dtype),
+                   ("batch", "seq", None))
     b, s, _ = x.shape
     positions = sharder.ac(torch.arange(s, device=x.device).expand(b, s),
                            ("batch", None))
     for lp in _unstack(params["enc_layers"], cfg.enc_layers):
+        lp = cast(lp, dtype)
         if mode == "train":
             x = checkpoint(_enc_layer, lp, x, cfg, positions, mode, chunk,
                            sharder, use_reentrant=False)
         else:
             x = _enc_layer(lp, x, cfg, positions, mode, chunk, sharder)
-    return ll.apply_norm(params["enc_norm"], x, cfg)
+        del lp
+    return ll.apply_norm(cast(params["enc_norm"], dtype), x, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -193,7 +198,8 @@ def _dec_layer(lp: Dict, x: torch.Tensor, enc_out, cfg, positions,
 
 def dec_forward(params: Dict, x: torch.Tensor, enc_out, cfg, positions,
                 mode: str, cache: Any = None, cur_len=None, chunk: int = 2048,
-                seq_capacity: int = 0, sharder: Sharder = IDENTITY_SHARDER
+                seq_capacity: int = 0, sharder: Sharder = IDENTITY_SHARDER,
+                dtype: Optional[torch.dtype] = None
                 ) -> Tuple[torch.Tensor, Any]:
     """The decoder stack -> (x, cache).  The cache is ``{"self": {k, v},
     "cross": {k, v}}``, each leaf stacked over the layers: None in train
@@ -205,6 +211,7 @@ def dec_forward(params: Dict, x: torch.Tensor, enc_out, cfg, positions,
     layers = _unstack(params["dec_layers"], n)
     stacked = None
     for i, lp in enumerate(layers):
+        lp = cast(lp, dtype)
         lc = sharder.decode_layer(cache, i) if mode == "decode" else None
         if mode == "train":
             x, _ = checkpoint(_dec_layer, lp, x, enc_out, cfg, positions,
@@ -216,7 +223,7 @@ def dec_forward(params: Dict, x: torch.Tensor, enc_out, cfg, positions,
             if mode == "prefill":
                 stacked = _stack_layer(stacked, i, n, nc)
             del nc
-        del lc
+        del lc, lp
     if mode == "train":
         return x, None
     if mode == "decode":
@@ -238,10 +245,12 @@ def encdec_apply(params: Dict, batch: Dict, cfg, mode: str = "prefill",
     prefill batch holds ``tokens`` and ``enc_embeds``; a decode batch the
     tokens alone, each taking the learned position ``cur_len`` (an int
     or a (b,) tensor, per slot).  Leaves are cast to ``compute_dtype`` on
-    every call, as ``lm_apply`` does."""
+    every call, as ``lm_apply`` does: all first in train mode, where
+    each is used in prefill and decode."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}; one of {MODES}")
-    params = cast(params, compute_dtype)
+    if mode == "train":
+        params = cast(params, compute_dtype)
     tokens = batch["tokens"]
     b, dev = tokens.shape[0], tokens.device
     enc_out = positions = None
@@ -250,20 +259,23 @@ def encdec_apply(params: Dict, batch: Dict, cfg, mode: str = "prefill",
                                     device=dev).reshape(-1, 1).expand(b, 1)
     else:
         enc_out = encode(params, batch["enc_embeds"].to(compute_dtype), cfg,
-                         mode, chunk, sharder)
+                         mode, chunk, sharder, compute_dtype)
         s = tokens.shape[1]
         positions = embed_pos = sharder.ac(
             torch.arange(s, device=dev).expand(b, s), ("batch", None))
-    x = ll.embed_tokens(params["embed"], tokens, cfg, positions=embed_pos)
+    x = ll.embed_tokens(params["embed"], tokens, cfg, positions=embed_pos,
+                        dtype=compute_dtype)
     x = sharder.ac(x, ("batch", "seq", None))
     x, new_cache = dec_forward(params, x, enc_out, cfg, positions, mode,
                                cache=cache, cur_len=cur_len, chunk=chunk,
-                               seq_capacity=seq_capacity, sharder=sharder)
+                               seq_capacity=seq_capacity, sharder=sharder,
+                               dtype=compute_dtype)
     if mode != "train":
         x = x[:, -1:]
-    x = ll.apply_norm(params["final_norm"], x, cfg)
+    x = ll.apply_norm(cast(params["final_norm"], compute_dtype), x, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=dev)
-    return ll.unembed(params["embed"], x, cfg, sharder), new_cache, aux
+    return (ll.unembed(params["embed"], x, cfg, sharder, compute_dtype),
+            new_cache, aux)
 
 
 def encdec_cache_spec(cfg, batch: int, seq_len: int,

@@ -47,6 +47,12 @@ def init_norm(gen: torch.Generator, cfg, d: int) -> Dict:
 
 
 def apply_norm(p: Dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    """RMSNorm or LayerNorm of each row, in f32, cast back to x's dtype.
+    Where autograd records nothing (serving), the chain runs in place on
+    one f32 copy of x (``_norm_in_place``)."""
+    if not (torch.is_grad_enabled()
+            and any(t.requires_grad for t in (x, *p.values()))):
+        return _norm_in_place(p, x, cfg)
     xf = x.float()
     if cfg.norm == "rmsnorm":
         var = torch.mean(xf * xf, dim=-1, keepdim=True)
@@ -57,6 +63,24 @@ def apply_norm(p: Dict, x: torch.Tensor, cfg) -> torch.Tensor:
         out = (xf - mean) * torch.rsqrt(var + cfg.norm_eps)
         out = out * p["scale"] + p["bias"]
     return out.to(x.dtype)
+
+
+def _norm_in_place(p: Dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    """``apply_norm``'s ops in the same order on one f32 copy of x, each
+    written into it: the same bits, with one full-size f32 temporary
+    alive where the out-of-place chain holds four (x's copy, the
+    centred rows, their scaled and shifted results; a 32k-token
+    prefill's first norm set its peak)."""
+    xf = x.to(torch.float32, copy=True)
+    if cfg.norm == "rmsnorm":
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+        xf.mul_(torch.rsqrt(var + cfg.norm_eps)).mul_(p["scale"])
+    else:
+        mean = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+        xf.sub_(mean).mul_(torch.rsqrt(var + cfg.norm_eps))
+        xf.mul_(p["scale"]).add_(p["bias"])
+    return xf.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -579,22 +603,32 @@ def init_embedding(gen: torch.Generator, cfg) -> Dict:
 
 
 def embed_tokens(p: Dict, tokens: torch.Tensor, cfg,
-                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 positions: Optional[torch.Tensor] = None,
+                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Token embeddings, plus ``pos_table[positions]`` (b, s) with learned
     positions.  The rows are gathered by ``F.embedding`` (JAX's
     ``table[tokens]``): its backward, a dense embedding gradient, has a
     DTensor strategy in torch 2.11, where indexing's (an ``index_put``)
-    fails on batch-split tokens."""
-    x = F.embedding(tokens, p["table"])
+    fails on batch-split tokens.  ``dtype`` casts the gathered rows
+    (the same bits as gathering from the cast table, without a copy of
+    the whole table)."""
+    x = _rows(p["table"], tokens, dtype)
     if cfg.tie_embeddings:
         x = x * math.sqrt(cfg.d_model)    # minicpm-style embedding scale
     if cfg.pos_scheme == "learned" and positions is not None:
-        x = x + F.embedding(positions, p["pos_table"])
+        x = x + _rows(p["pos_table"], positions, dtype)
     return x
 
 
+def _rows(table: torch.Tensor, ids: torch.Tensor,
+          dtype: Optional[torch.dtype]) -> torch.Tensor:
+    x = F.embedding(ids, table)
+    return x if dtype is None else x.to(dtype)
+
+
 def unembed(p: Dict, x: torch.Tensor, cfg,
-            sharder: Sharder = IDENTITY_SHARDER) -> torch.Tensor:
+            sharder: Sharder = IDENTITY_SHARDER,
+            dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Logits (b, s, Vp), laid out by ("batch", None, "vocab") as in JAX.
 
     Where the rules split the rows ("q_seq") and not the vocab, the
@@ -603,11 +637,14 @@ def unembed(p: Dict, x: torch.Tensor, cfg,
     out by the rows instead, so that each rank projects, and
     differentiates, its own rows (a train step's; serving's one row
     stays whole), as XLA splits the unembedding's backward over the
-    rows in JAX's dry run."""
+    rows in JAX's dry run.  ``dtype`` casts the weight it projects by,
+    alone (the table is not cast where the head projects)."""
     rows = ("q_seq" if sharder.axis_size("q_seq") > 1
             and sharder.axis_size("vocab") == 1 else None)
     tied = cfg.tie_embeddings
     w = p["table"] if tied else p["head"]
+    if dtype is not None:
+        w = w.to(dtype)
     if rows:
         # on the local shards, as ``_project``: DTensor (torch 2.11)
         # refuses the einsum's view merging the split batch and rows

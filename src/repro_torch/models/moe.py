@@ -8,7 +8,13 @@ beyond C drop, and the Switch-style aux loss is returned beside y.  The
 JAX package's layout constraints stand at the same points (``sharder``):
 the routing metadata by batch alone, the capacity blocks by batch, h by
 "mlp" on the einsum path (the kernel never materialises h) and the
-expert outputs by "moe_d".
+expert outputs by "moe_d".  Where the rules split the experts, the
+einsum path's down projection runs on each rank's experts, as XLA's
+layout runs it: h goes back to the experts' split, so the expert
+outputs are split by E and gathered (in training moved to the
+combine's d_model split by one all-to-all), never a partial sum of the
+whole (G, E, C, D) blocks over d_ff, all-reduced whole (olmoe-1b-7b's
+train_4k: 128 such all-reduces of 671 MB a step).
 
 Three orderings follow JAX exactly, or the slot assignment diverges
 whenever capacity overflows or router probabilities tie:
@@ -156,8 +162,14 @@ def apply_moe(p: Dict, x: torch.Tensor, cfg, mode: str = "prefill",
         else:
             h = _gelu_tanh(h)
         h = sharder.ac(h, ("batch", None, None, "mlp"))
+        if sharder.axis_size("experts") > 1:
+            # the down projection on each rank's experts, as XLA's layout
+            # runs it: h back to the experts' split, so that ``out`` is
+            # split by E, not a partial sum of the whole blocks over d_ff
+            h = sharder.ac(h, ("batch", "experts", None, None))
         out = torch.einsum("gecf,efd->gecd", h, p["wo"])
-    out = sharder.ac(out, ("batch", None, None, "moe_d"))
+    if mode != "train" or not _by_experts(out):
+        out = sharder.ac(out, ("batch", None, None, "moe_d"))
 
     # --- combine: gather each (token, k) slot's output, weight by gate --
     inv = torch.argsort(sort_idx, dim=-1, stable=True)     # (G,TK)
@@ -178,21 +190,28 @@ _COMBINE_ROLES = (("b", None, None, "d"), ("b", None), ("b", None),
                   ("b", None, None))
 
 
+def _by_experts(out: torch.Tensor) -> bool:
+    """Whether the expert outputs are split along E (dim 1)."""
+    return isinstance(out, DTensor) and Shard(1) in out.placements
+
+
 def _split_d(out: torch.Tensor) -> torch.Tensor:
     """The expert outputs (G, E, C, D) split along D over each mesh dim
-    (of more than one rank) that replicates them and divides D: a slice
-    of each rank's copy, no collective.  It is the layout DTensor's own
-    gather takes for the combine in training: each rank's gather, mask,
-    gate product and their backward on its share of D, the result then
-    gathered where the residual stream is whole (fewer flops for the
-    gather).  A serving step keeps D whole, as DTensor's gather does
-    there (no gather of the result)."""
+    (of more than one rank) that replicates them, or splits their
+    experts, and divides D: a slice of each rank's copy, no collective,
+    or from the experts' split one all-to-all, so that no rank gathers
+    the whole blocks.  It is the layout DTensor's own gather takes for
+    the combine in training: each rank's gather, mask, gate product and
+    their backward on its share of D, the result then gathered where
+    the residual stream is whole (fewer flops for the gather).  A
+    serving step keeps D whole, as DTensor's gather does there (no
+    gather of the result)."""
     if not isinstance(out, DTensor):
         return out
     mesh = out.device_mesh
     return out.redistribute(mesh, tuple(
-        Shard(3) if p.is_replicate() and mesh.size(i) > 1
-        and out.shape[3] % mesh.size(i) == 0 else p
+        Shard(3) if (p.is_replicate() or p == Shard(1))
+        and mesh.size(i) > 1 and out.shape[3] % mesh.size(i) == 0 else p
         for i, p in enumerate(out.placements)))
 
 

@@ -100,7 +100,14 @@ def _sigmoid(x: torch.Tensor) -> torch.Tensor:
 
 def wkv6_chunked_plain(r, k, v, lw, u, state0, chunk: int):
     """The JAX function's chunked scan: within a chunk, pairwise decays
-    are exponentials of cumulative-log-decay differences, all <= 0."""
+    are exponentials of cumulative-log-decay differences, all <= 0.
+
+    The chunks are taken by one ``unbind`` of each input, as ``lax.scan``
+    slices its inputs: its backward stacks the chunks' gradients once.
+    Indexing a chunk at a time instead gives each chunk's gradient the
+    whole input's shape, summed chunk by chunk (in rwkv6-7b's train
+    step, 127 adds of a whole (128, b, 32, h, 64) gradient per input
+    and layer)."""
     b, s, h, n = r.shape
     if s % chunk:
         chunk = s
@@ -108,7 +115,7 @@ def wkv6_chunked_plain(r, k, v, lw, u, state0, chunk: int):
     f32 = torch.float32
 
     def to_chunks(x):
-        return x.reshape(b, nc, L, h, n).transpose(0, 1)
+        return x.reshape(b, nc, L, h, n).transpose(0, 1).unbind(0)
 
     rc, kc, vc, lwc = map(to_chunks, (r, k, v, lw))
     S = (torch.zeros((b, h, n, n), dtype=f32, device=r.device)

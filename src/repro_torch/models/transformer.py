@@ -374,9 +374,12 @@ def _stack_layer(stacked: Any, i: int, n: int, entry: Any) -> Any:
 def decoder_forward(layers_params, x: torch.Tensor, cfg, positions,
                     mode: str, cache=None, cur_len=None, chunk: int = 2048,
                     seq_capacity: int = 0, n_vis: int = 0,
+                    dtype: Optional[torch.dtype] = None,
                     sharder: Sharder = IDENTITY_SHARDER
                     ) -> Tuple[torch.Tensor, Any, torch.Tensor]:
     """Run the decoder stack -> (x, cache, aux_loss summed over layers).
+    ``dtype`` casts each layer's leaves as the loop reaches the layer,
+    so that one layer's cast copy is alive at a time.
     Train returns no cache; prefill returns a new stacked cache in the
     compute dtype (the RWKV and ssm states in f32), each layer's entry
     written into it as the layer returns it (``_stack_layer``); decode
@@ -397,7 +400,7 @@ def decoder_forward(layers_params, x: torch.Tensor, cfg, positions,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(n_steps):
         for pos in range(n_pos):
-            lp = per_layer[pos][i]
+            lp = cast(per_layer[pos][i], dtype)
             lc = (sharder.decode_layer(caches[pos], i) if mode == "decode"
                   else None)
             if mode == "train":
@@ -414,7 +417,7 @@ def decoder_forward(layers_params, x: torch.Tensor, cfg, positions,
             if mode == "prefill":
                 stacked[pos] = _stack_layer(stacked[pos], i, n_steps, nc)
             # copied or written back: not kept into the next layer
-            del nc, lc
+            del nc, lc, lp
     if mode == "train":
         return x, None, aux
     if mode == "decode":
@@ -443,19 +446,26 @@ def lm_apply(params: Dict, batch: Dict, cfg, mode: str = "prefill",
     positions, the cache and train mode's labels and mask then cover
     ``n_vis + s_text``.
 
-    Leaves not in ``compute_dtype`` are cast here, on every call, as the
-    JAX function does: train mode takes the f32 master params (with
-    ``requires_grad``), so the cast is part of the graph and the
-    gradients reach them in f32.  Serving casts once beforehand
-    (``Model.load``, ``BatchServer``), which makes the cast here free.
+    Leaves not in ``compute_dtype`` are cast on every call, as the JAX
+    function does: train mode takes the f32 master params (with
+    ``requires_grad``) and casts them all first, so the cast is part of
+    the graph, the gradients reach them in f32 and the embedding's
+    gradient is summed in the compute dtype, as in JAX.  Prefill and
+    decode cast where XLA's compiled form does: the table's gathered
+    rows, each layer's leaves in the layer loop, the weight the
+    unembedding projects by; no whole copy of the params is alive
+    (the values are the cast-first order's, bit for bit).  Serving
+    casts once beforehand (``Model.load``, ``BatchServer``), which
+    makes every cast free.
     """
     check_family(cfg)
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}; one of {MODES}")
-    params = cast(params, compute_dtype)
+    if mode == "train":
+        params = cast(params, compute_dtype)
     tokens = batch["tokens"]
     b = tokens.shape[0]
-    x = ll.embed_tokens(params["embed"], tokens, cfg)
+    x = ll.embed_tokens(params["embed"], tokens, cfg, dtype=compute_dtype)
     n_vis = 0
     if "vision_embeds" in batch:
         vis = batch["vision_embeds"].to(x.dtype)
@@ -473,8 +483,9 @@ def lm_apply(params: Dict, batch: Dict, cfg, mode: str = "prefill",
     x, new_cache, aux = decoder_forward(
         params["layers"], x, cfg, positions, mode=mode, cache=cache,
         cur_len=cur_len, chunk=chunk, seq_capacity=seq_capacity,
-        n_vis=n_vis, sharder=sharder)
+        n_vis=n_vis, dtype=compute_dtype, sharder=sharder)
     if mode != "train":
         x = x[:, -1:]
-    x = ll.apply_norm(params["final_norm"], x, cfg)
-    return ll.unembed(params["embed"], x, cfg, sharder), new_cache, aux
+    x = ll.apply_norm(cast(params["final_norm"], compute_dtype), x, cfg)
+    return (ll.unembed(params["embed"], x, cfg, sharder, compute_dtype),
+            new_cache, aux)

@@ -823,3 +823,61 @@ def test_wkv6_on_dtensors(card, mesh11, layout):
     args = (r_, k, v, lw, u, s0)
     _dtensor_case(wkv_ops.wkv6, wkv_ops.wkv6_state, args,
                   _on_mesh(mesh11, [seq] * 4 + [u_pl, st], *args), [seq, st])
+
+
+# ---------------------------------------------------------------------------
+# The production dry run on fake CUDA tensors against JAX's own
+# ---------------------------------------------------------------------------
+
+# JAX's dry run of these single-pod cells on the (16, 16) mesh (``python
+# -m repro.launch.dryrun --arch ARCH --shape SHAPE``, jax 0.9.0, XLA's
+# counts compiled for 512 host devices on the CPU): olmoe-1b-7b
+# train_4k's collective bytes a device (``collective_bytes_per_device``),
+# and three prefill_32k cells' bytes a device (``memory.
+# per_device_total``)
+JAX_OLMOE_TRAIN_COLLECTIVE_BYTES = 77105217600.0
+JAX_PREFILL_BYTES = {"stablelm-1.6b": 4966097944.0,
+                     "whisper-small": 4951023624.0,
+                     "nemotron-4-15b": 30606474136.0}
+
+
+def _dryrun_cell(arch, shape):
+    """The port's dry run of one single-pod cell, in a process of its
+    own (the module's NCCL group would refuse the fake one)."""
+    import json
+    import os
+    import pathlib
+    import subprocess
+    import sys
+    root = pathlib.Path(__file__).resolve().parents[1]
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape], cwd=root, capture_output=True, text=True,
+        timeout=900, env={**os.environ, "PYTHONPATH": str(root / "src")})
+    assert out.returncode == 0, out.stderr[-4000:]
+    res = json.loads(out.stdout)
+    assert res["status"] == "ok", res
+    return res
+
+
+@pytest.mark.gpu
+def test_dryrun_olmoe_train_moves_at_most_jax_collective_bytes(card):
+    """olmoe-1b-7b train_4k on the card's fake tensors: collective bytes
+    a device at most 1.10 x JAX's, and no all-reduce of the whole
+    capacity blocks (G, E, C, D): the down projection runs on each
+    rank's experts."""
+    res = _dryrun_cell("olmoe-1b-7b", "train_4k")
+    got = sum(c["bytes"] for c in res["collectives"].values())
+    assert got <= 1.10 * JAX_OLMOE_TRAIN_COLLECTIVE_BYTES, res["collectives"]
+    reduced = res["largest_collectives"].get("all-reduce")
+    assert reduced is None or reduced["shape"][1:] != [64, 640, 2048]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", sorted(JAX_PREFILL_BYTES))
+def test_dryrun_prefill_holds_at_most_jax_bytes(card, arch):
+    """prefill_32k on f32 params: bytes a device at most 1.05 x JAX's
+    (the params are cast where they are used, not all first)."""
+    res = _dryrun_cell(arch, "prefill_32k")
+    got = res["memory"]["per_device_total"]
+    assert got <= 1.05 * JAX_PREFILL_BYTES[arch], res["memory"]
